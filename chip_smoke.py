@@ -1,0 +1,413 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the cycle-step kernel from ``src/repro_torch/kernels/csrc`` with
+nvcc, then, printing one JSON object per line:
+
+1. the card (nvidia-smi name and power limit, torch and CUDA versions);
+2. the build and its time;
+3. the kernel against its plain PyTorch version on the card, bit-equal on
+   all five state fields after every step: random collision-free programs
+   over P in {4, 9, 16, 25, 36}, M in {64, 128, 256}, B in {1, 37, 1000,
+   4096}, and every shipped artifact's full program at B=1024;
+4. the main path: ``fuzz_kernel`` on all 16 artifacts, 2048 memories in
+   batches of 1024, every verdict ``ok`` and equal to the status of the
+   same kernel in ``results/BENCH_fuzz.json``; the kernel's launch count
+   over that run must equal the rows run;
+5. a stream: gsm over 65,536 memories in batches of 16,384, and one
+   main-path run of gsm under ``torch.profiler`` (device busy and idle
+   share, the kernel's device time per launch);
+6. kernel time per launch at B in {1024, 16384}, P=16, M=128: device time
+   under ``torch.profiler`` and the host's issue pace with CUDA events,
+   beside its byte bound and the plain version's times;
+7. the kernels line, then the device line last.
+
+Any failure raises and exits non-zero.  Without CUDA it exits 1 and
+prints no result.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+SWEEP_STEPS = 64
+MAIN_MEMORIES, MAIN_BATCH = 2048, 1024
+STREAM_MEMORIES, STREAM_BATCH = 65536, 16384
+TIMED_BATCHES = (1024, 16384)
+TIMED_P, TIMED_M = 16, 128
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip smoke failed: {what}")
+
+
+def state_bytes(B: int, P: int, M: int) -> int:
+    """Bytes one cycle step must move: the state read once, written once."""
+    return 2 * 4 * B * (7 * P + M)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def grid_for(P: int):
+    from repro_torch.cgra.arch import Grid
+
+    side = int(round(P ** 0.5))
+    return Grid(side, side, "torus")
+
+
+def tensors(arrays, device):
+    import torch
+
+    return {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+
+
+def kernel_vs_plain(device) -> int:
+    """Phase 3a: random programs, every field after every step.  Returns
+    the largest absolute difference seen (0 when bit-equal)."""
+    import numpy as np
+    import torch
+    from repro_torch.cgra.arch import neighbor_table
+    from repro_torch.kernels.pe_array import cycle_step
+    from repro_torch.kernels.ref import InstrRow, PEState, cycle_step_ref
+    from repro_torch.kernels.sample import random_fields, random_state
+
+    worst = 0
+    cases = 0
+    t0 = time.monotonic()
+    for P in (4, 9, 16, 25, 36):
+        nbr = torch.as_tensor(np.asarray(neighbor_table(grid_for(P)),
+                                         np.int32), device=device)
+        for M in (64, 128, 256):
+            for B in (1, 37, 1000, 4096):
+                rng = np.random.RandomState(P * 100_003 + M * 101 + B)
+                f = tensors(random_fields(rng, SWEEP_STEPS, P, M,
+                                          full_encoding=True), device)
+                rows = [InstrRow(*r) for r in zip(
+                    *(f[k].unbind(0) for k in InstrRow._fields))]
+                s = tensors(random_state(rng, B, P, M), device)
+                kern = plain = PEState(**s)
+                for t, row in enumerate(rows):
+                    kern = cycle_step(kern, row, nbr)
+                    plain = cycle_step_ref(plain, row, nbr)
+                    for name, a, b in zip(PEState._fields, kern, plain):
+                        diff = int((a.long() - b.long()).abs().max())
+                        worst = max(worst, diff)
+                        check(diff == 0, f"P={P} M={M} B={B} step {t}: "
+                                         f"{name} differs by {diff}")
+                cases += 1
+    emit({"phase": "kernel_vs_plain", "cases": cases,
+          "steps_each": SWEEP_STEPS, "max_abs_err": worst,
+          "seconds": round(time.monotonic() - t0, 3)})
+    return worst
+
+
+def artifacts_vs_plain(device, artifacts) -> int:
+    """Phase 3b: every artifact's full program at B=1024, kernel
+    ``run_program`` against a loop of the plain step on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.cgra.arch import neighbor_table
+    from repro_torch.cgra.simulator import preset_state
+    from repro_torch.fuzz.corpus import make_corpus
+    from repro_torch.kernels.ops import decode_fields, run_program
+    from repro_torch.kernels.ref import InstrRow, cycle_step_ref
+
+    worst = 0
+    t0 = time.monotonic()
+    for art in artifacts:
+        mems = make_corpus(art, MAIN_BATCH, seed=7)
+        fields = decode_fields(art.asm.words(), device)
+        state = preset_state(art.asm, art.grid.num_pes, mems, MAIN_BATCH,
+                             device)
+        nbr = neighbor_table(art.grid)
+        final, outs = run_program(fields, state, nbr, device)
+        nbr_t = torch.as_tensor(np.asarray(nbr, np.int32), device=device)
+        plain = state
+        for t, row in enumerate(zip(*(f.unbind(0) for f in fields))):
+            plain = cycle_step_ref(plain, InstrRow(*row), nbr_t)
+            diff = int((outs[t].long() - plain.out.long()).abs().max())
+            worst = max(worst, diff)
+            check(diff == 0, f"{art.kernel}: out differs at row {t}")
+        for name, a, b in zip(plain._fields, final, plain):
+            diff = int((a.long() - b.long()).abs().max())
+            worst = max(worst, diff)
+            check(diff == 0, f"{art.kernel}: final {name} differs")
+    emit({"phase": "artifacts_vs_plain", "artifacts": len(artifacts),
+          "batch": MAIN_BATCH, "max_abs_err": worst,
+          "seconds": round(time.monotonic() - t0, 3)})
+    return worst
+
+
+def main_path(artifacts, device) -> int:
+    """Phase 4: the fuzz path on every artifact.  Returns the kernel's
+    launches over the run."""
+    from repro_torch.fuzz.engine import fuzz_kernel
+    from repro_torch.kernels.pe_array import cycle_step
+
+    bench = json.loads((ROOT / "results" / "BENCH_fuzz.json").read_text())
+    expected_status = {row["kernel"]: row["status"] for row in bench["rows"]}
+    chunks = -(-MAIN_MEMORIES // MAIN_BATCH)
+    rows_run = sum(a.asm.total_rows * chunks for a in artifacts)
+    t0 = time.monotonic()
+    cycle_step.launches = 0
+    reports = [fuzz_kernel(a.kernel, a.arch, memories=MAIN_MEMORIES,
+                           batch=MAIN_BATCH, seed=0, device=device)
+               for a in artifacts]
+    launches = cycle_step.launches
+    wall = time.monotonic() - t0
+    for rep in reports:
+        emit({"phase": "fuzz", "kernel": rep.kernel, "arch": rep.arch,
+              "status": rep.status, "ii": rep.ii, "memories": rep.memories,
+              "batch": rep.batch, "backend": rep.backend,
+              "mem_rate": rep.mem_rate, "exec_time_s": rep.exec_time_s,
+              "oracle_time_s": rep.oracle_time_s})
+        check(rep.status == "ok" and rep.failing == [],
+              f"{rep.kernel}: {rep.status} {rep.mismatches[:2]}")
+        check(rep.status == expected_status.get(rep.kernel),
+              f"{rep.kernel}: status {rep.status} != BENCH_fuzz.json "
+              f"{expected_status.get(rep.kernel)}")
+    check(launches == rows_run,
+          f"cycle_step launched {launches} times, rows run {rows_run}")
+    emit({"phase": "main_path", "kernels": len(reports),
+          "memories_each": MAIN_MEMORIES, "batch": MAIN_BATCH,
+          "cycle_step_launches": launches, "rows_run": rows_run,
+          "seconds": round(wall, 3)})
+    return launches
+
+
+def stream_phase(device) -> None:
+    """Phase 5: one kernel over a large corpus in large batches."""
+    from repro_torch.fuzz.engine import fuzz_kernel
+    from repro_torch.kernels.pe_array import cycle_step
+
+    cycle_step.launches = 0
+    rep = fuzz_kernel("gsm", "4x4", memories=STREAM_MEMORIES,
+                      batch=STREAM_BATCH, seed=1, device=device)
+    check(rep.status == "ok" and rep.failing == [],
+          f"gsm stream: {rep.status} {rep.mismatches[:2]}")
+    check(cycle_step.launches > 0, "stream ran no kernel launch")
+    emit({"phase": "stream", "kernel": "gsm", "arch": "4x4",
+          "memories": rep.memories, "batch": rep.batch,
+          "cycle_step_launches": cycle_step.launches,
+          "mem_rate": rep.mem_rate, "exec_time_s": rep.exec_time_s,
+          "oracle_time_s": rep.oracle_time_s})
+
+
+def device_us(event) -> float:
+    """Device time of one averaged profiler event, in µs."""
+    return float(getattr(event, "self_device_time_total",
+                         getattr(event, "self_cuda_time_total", 0.0)))
+
+
+def on_device(prof):
+    """The profiler's averaged events that ran on the GPU (kernels and
+    copies), leaving out the host-side operators that launched them, whose
+    device time would count the same work twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def profile_phase(device) -> None:
+    """Phase 5b: device busy time of one main-path fuzz run (gsm, 2048
+    memories, batch 1024) under ``torch.profiler``: the kernel's device
+    time per launch and the device's idle share of the run's wall time
+    (the profiler's own host overhead lengthens that wall time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.cgra.artifact import load_artifact
+    from repro_torch.fuzz.corpus import make_corpus
+    from repro_torch.fuzz.engine import fuzz_program
+
+    art = load_artifact("4x4", "gsm")
+    mems = make_corpus(art, MAIN_MEMORIES)
+    fuzz_program(art, mems[:MAIN_BATCH], batch=MAIN_BATCH, device=device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rep = fuzz_program(art, mems, batch=MAIN_BATCH, device=device)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    check(rep.status == "ok", f"profiled gsm run: {rep.status}")
+
+    events = on_device(prof)
+    busy_us = sum(device_us(e) for e in events)
+    kern = [e for e in events if "cycle_step_kernel" in e.key]
+    launches = sum(e.count for e in kern)
+    kern_us = sum(device_us(e) for e in kern)
+    emit({"phase": "profile", "kernel": "gsm", "memories": MAIN_MEMORIES,
+          "batch": MAIN_BATCH, "wall_us": wall_us,
+          "device_busy_us": busy_us,
+          "idle_share": (1 - busy_us / wall_us) if busy_us else None,
+          "kernel_launches": launches,
+          "kernel_device_us_per_launch":
+              (kern_us / launches) if launches else None,
+          "top": [(e.key[:80], e.count, device_us(e)) for e in sorted(
+              events, key=device_us, reverse=True)[:6]]})
+
+
+def host_paced_ms(fn, calls: int, reps: int) -> float:
+    """Median milliseconds per call of ``fn`` over ``reps`` runs of
+    ``calls`` back-to-back calls, each run timed with CUDA events: the
+    pace at which the host issues the calls, which is what the main path
+    pays."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    per = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        per.append(start.elapsed_time(end) / calls)
+    return statistics.median(per)
+
+
+def device_ms(fn, calls: int) -> float:
+    """Milliseconds of device time per call of ``fn``: the GPU time of
+    every kernel and copy it ran, over ``calls`` calls, under
+    ``torch.profiler`` (gaps between launches left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(device_us(e) for e in on_device(prof))
+    check(busy_us > 0, "the profiler recorded no device time")
+    return busy_us / calls / 1e3
+
+
+def timing(device):
+    """Phase 6: kernel and plain time per cycle step at the fuzz path's
+    shapes, as device time and at the host's issue pace.  Returns
+    {B: (kernel_ms, plain_ms, bound_ms)}, device times."""
+    import numpy as np
+    import torch
+    from repro_torch.cgra.arch import neighbor_table
+    from repro_torch.kernels.pe_array import cycle_step
+    from repro_torch.kernels.ref import InstrRow, PEState, cycle_step_ref
+    from repro_torch.kernels.sample import random_fields, random_state
+
+    nbr = torch.as_tensor(np.asarray(neighbor_table(grid_for(TIMED_P)),
+                                     np.int32), device=device)
+    out = {}
+    for B in TIMED_BATCHES:
+        rng = np.random.RandomState(B)
+        f = tensors(random_fields(rng, 1, TIMED_P, TIMED_M), device)
+        row = InstrRow(*(f[k][0] for k in InstrRow._fields))
+        bufs = [PEState(**tensors(random_state(rng, B, TIMED_P, TIMED_M),
+                                  device)) for _ in range(2)]
+        flip = [0]
+
+        def kernel_step():
+            i = flip[0]
+            cycle_step(bufs[i], row, nbr, out=bufs[1 - i])
+            flip[0] = 1 - i
+
+        def plain_step():
+            cycle_step_ref(bufs[0], row, nbr)
+
+        kernel_ms = device_ms(kernel_step, 200)
+        kernel_paced_ms = host_paced_ms(kernel_step, 200, 15)
+        plain_ms = device_ms(plain_step, 20)
+        plain_paced_ms = host_paced_ms(plain_step, 20, 7)
+        bound_ms = state_bytes(B, TIMED_P, TIMED_M) / HBM_BYTES_PER_S * 1e3
+        out[B] = (kernel_ms, plain_ms, bound_ms)
+        emit({"phase": "timing", "kernel": "pe_array.cycle_step", "B": B,
+              "P": TIMED_P, "M": TIMED_M,
+              "kernel_device_us": kernel_ms * 1e3,
+              "kernel_host_paced_us": kernel_paced_ms * 1e3,
+              "plain_device_us": plain_ms * 1e3,
+              "plain_host_paced_us": plain_paced_ms * 1e3,
+              "bound_us": bound_ms * 1e3,
+              "bytes": state_bytes(B, TIMED_P, TIMED_M)})
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.cgra.artifact import artifact_names, load_artifact
+    from repro_torch.kernels import build
+
+    device = torch.device("cuda", 0)
+    card = card_line()
+    print(card, flush=True)
+    emit({"phase": "card", "nvidia_smi": card,
+          "device": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+
+    t0 = time.monotonic()
+    built = build.build()
+    build.library()
+    emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
+          "nvcc_seconds": round(built.seconds, 3), "library": built.path.name,
+          "ptxas": [ln for ln in built.log.splitlines() if "ptxas" in ln]})
+
+    artifacts = [load_artifact(arch, name) for arch in ("4x4", "3x3")
+                 for name in artifact_names(arch)]
+    check(len(artifacts) == 16, f"{len(artifacts)} artifacts shipped, not 16")
+
+    err = max(kernel_vs_plain(device), artifacts_vs_plain(device, artifacts))
+    launches = main_path(artifacts, device)
+    stream_phase(device)
+    profile_phase(device)
+    times = timing(device)
+
+    kernel_ms, plain_ms, bound_ms = times[MAIN_BATCH]
+    emit({"kernels": [{
+        "name": "pe_array.cycle_step",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pe_array.cu",
+        "replaces": "src/repro/kernels/pe_array.py:67",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,342 @@
+"""Batched differential engine: one bitstream, thousands of memories.
+
+Counterpart of ``src/repro/fuzz/engine.py`` (its single-kernel half):
+
+* :func:`batched_oracle`, a copy of the JAX package's: the serial oracle
+  vectorized over a ``(B, M)`` memory batch in numpy int64, wrapped to
+  int32 after every op.
+* :func:`fuzz_program` chunks a corpus through
+  :func:`repro_torch.cgra.simulator.execute_asm` (the PE array's batch
+  axis, on the card by default), compares every last-iteration node value
+  and the final memory image against the batched oracle, and reports
+  per-memory verdicts with the comparison contract of ``verify``.
+* :func:`fuzz_kernel` loads a shipped artifact instead of mapping.
+
+Not ported yet: stacking K kernels in one run, triage and the switching
+activity harvest, so ``FuzzReport.activity`` and ``energy`` stay None.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..cgra.artifact import Artifact, AssembledCIL, load_artifact
+from ..cgra.isa import FXP_FRAC_BITS
+from ..cgra.program import Program, Val
+from ..cgra.simulator import execute_asm
+from ..device import resolve_device
+from .corpus import make_corpus
+
+M32 = (1 << 32) - 1
+_SIGN = 1 << 31
+
+
+def _wrap32(x) -> np.ndarray:
+    """int64 array -> int64 holding signed-32-bit-wrapped values."""
+    x = np.asarray(x, np.int64) & M32
+    return x - ((x >= _SIGN).astype(np.int64) << 32)
+
+
+def _alu_vec(op: str, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Vectorized ``isa.alu_semantics`` on int64 arrays that hold
+    int32-wrapped values."""
+    if op in ("SADD", "MOV"):
+        return _wrap32(a + b)
+    if op == "SSUB":
+        return _wrap32(a - b)
+    if op == "SMUL":
+        return _wrap32(a * b)
+    if op == "FXPMUL":
+        return _wrap32((a * b) >> FXP_FRAC_BITS)
+    if op == "SLT":
+        return _wrap32(a << (b & 31))
+    if op == "SRT":
+        return _wrap32((a & M32) >> (b & 31))
+    if op == "SRA":
+        return _wrap32(a >> (b & 31))
+    if op == "LAND":
+        return _wrap32(a & b)
+    if op == "LOR":
+        return _wrap32(a | b)
+    if op == "LXOR":
+        return _wrap32(a ^ b)
+    if op == "LNAND":
+        return _wrap32(~(a & b))
+    if op == "LNOR":
+        return _wrap32(~(a | b))
+    if op == "LXNOR":
+        return _wrap32(~(a ^ b))
+    if op in ("BEQ", "BNE", "BLT", "BGE"):
+        return _wrap32(a - b)
+    if op in ("JUMP", "EXIT", "NOP"):
+        return np.zeros_like(a)
+    raise ValueError(f"no ALU semantics for {op}")
+
+
+def _gather(mem: np.ndarray, addr: np.ndarray) -> np.ndarray:
+    """mem (B, M), addr scalar or (B,) -> (B,) loaded values."""
+    if addr.ndim == 0:
+        return mem[:, int(addr)].copy()
+    return mem[np.arange(mem.shape[0]), addr]
+
+
+def _scatter(mem: np.ndarray, addr: np.ndarray, val: np.ndarray) -> None:
+    if addr.ndim == 0:
+        mem[:, int(addr)] = val
+    else:
+        mem[np.arange(mem.shape[0]), addr] = val
+
+
+def _batched_interpret(
+    program: Program, mems: np.ndarray, record_iterations: bool = False
+) -> Tuple[Dict[int, np.ndarray], np.ndarray, List[Dict[int, np.ndarray]]]:
+    """The serial oracle over a (B, M) batch.
+
+    Returns (last-iteration node values, final memories, per-iteration
+    node values when requested).  Values that depend only on the
+    induction carries stay scalar until they meet batch data.  Addresses
+    are range-checked like the serial oracle's list indexing.
+    """
+    mems = _wrap32(np.asarray(mems, np.int64))
+    if mems.ndim == 1:
+        mems = mems[None, :]
+    B, M = mems.shape
+    carry_vals: Dict[int, np.ndarray] = {
+        c.update: np.asarray(np.int64(c.init)) for c in program.carries}
+    history: List[Dict[int, np.ndarray]] = []
+    vals: Dict[int, np.ndarray] = {}
+    for _ in range(program.trip):
+        vals = {}
+        flags: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        for nid in program.order:
+            a, b = program.node_srcs[nid]
+            imm = program.node_imm[nid]
+            op = program.ops[nid]
+
+            def fetch(operand, use_imm):
+                if operand is None:
+                    return np.asarray(np.int64(imm if use_imm else 0))
+                if isinstance(operand, int):
+                    return np.asarray(np.int64(operand))
+                if isinstance(operand, Val):
+                    return vals[operand.node]
+                return carry_vals[operand.update]
+
+            av = fetch(a, a is None and op not in ("LWI", "SWI"))
+            bv = fetch(b, b is None)
+            if op in ("LWD", "LWI", "SWD", "SWI"):
+                addr = av + (imm if op in ("LWI", "SWI") else 0)
+                if (addr < 0).any() or (addr >= M).any():
+                    raise IndexError(
+                        f"{program.name}: node {nid} ({op}) address "
+                        f"outside [0, {M})")
+                if op in ("LWD", "LWI"):
+                    out = _gather(mems, addr)
+                else:
+                    out = np.broadcast_to(bv, (B,)).astype(np.int64)
+                    _scatter(mems, addr, out)
+            elif op in ("BSFA", "BZFA"):
+                sign, zero = flags[program.flag_deps[nid]]
+                out = np.asarray(np.where(sign if op == "BSFA" else zero,
+                                          av, bv), np.int64)
+            else:
+                out = _alu_vec(op, av, bv)
+            vals[nid] = out
+            flags[nid] = (out < 0, out == 0)
+        for c in program.carries:
+            carry_vals[c.update] = vals[c.update]
+        if record_iterations:
+            history.append({n: np.broadcast_to(v, (B,)).copy()
+                            for n, v in vals.items()})
+    final = {n: np.broadcast_to(v, (B,)) for n, v in vals.items()}
+    return final, mems, history
+
+
+def batched_oracle(
+    program: Program, mems: np.ndarray
+) -> Tuple[Dict[int, np.ndarray], np.ndarray]:
+    """(last-iteration node values {nid: (B,)}, final memories (B, M))."""
+    vals, final_mems, _ = _batched_interpret(program, mems)
+    return vals, final_mems
+
+
+def batched_oracle_iterations(
+    program: Program, mems: np.ndarray
+) -> List[Dict[int, np.ndarray]]:
+    """Per-iteration node values (one dict per trip iteration)."""
+    _, _, history = _batched_interpret(program, mems, record_iterations=True)
+    return history
+
+
+# ---------------------------------------------------------------------------
+# differential comparison (the simulator.verify contract, batched)
+# ---------------------------------------------------------------------------
+
+
+def compare_batch(
+    sim_node_values: Dict[int, np.ndarray],
+    sim_final_mem: np.ndarray,
+    oracle_vals: Dict[int, np.ndarray],
+    oracle_mem: np.ndarray,
+) -> np.ndarray:
+    """Per-memory failure mask (B,) over every last-iteration node value
+    and the full final memory."""
+    bad = np.zeros(sim_final_mem.shape[0], bool)
+    for n, vals in sim_node_values.items():
+        exp = oracle_vals.get(n)
+        if exp is None:
+            continue
+        bad |= (np.asarray(vals, np.int64) & M32) != (exp & M32)
+    bad |= ((np.asarray(sim_final_mem, np.int64) & M32)
+            != (oracle_mem & M32)).any(axis=1)
+    return bad
+
+
+def mismatch_strings(
+    program: Program,
+    sim_node_values: Dict[int, np.ndarray],
+    sim_final_mem: np.ndarray,
+    oracle_vals: Dict[int, np.ndarray],
+    oracle_mem: np.ndarray,
+    index: int,
+    label: Optional[int] = None,
+) -> List[str]:
+    """The ``verify``-style mismatch lines for one memory of a batch
+    (``index`` picks the row; ``label`` is the corpus-level id)."""
+    tag = index if label is None else label
+    errors: List[str] = []
+    for n, vals in sim_node_values.items():
+        exp = oracle_vals.get(n)
+        if exp is None:
+            continue
+        got = int(vals[index]) & M32
+        want = int(exp[index]) & M32
+        if got != want:
+            errors.append(f"mem {tag}: node {n} ({program.name}): "
+                          f"sim {got:#x} != oracle {want:#x}")
+    sim_mem = np.asarray(sim_final_mem[index], np.int64) & M32
+    ref_mem = np.asarray(oracle_mem[index], np.int64) & M32
+    for addr in np.nonzero(sim_mem != ref_mem)[0]:
+        errors.append(f"mem {tag}: mem[{int(addr)}] sim "
+                      f"{int(sim_mem[addr]):#x} != oracle "
+                      f"{int(ref_mem[addr]):#x}")
+    return errors
+
+
+def node_values_from_outs(
+    asm: AssembledCIL, outs: torch.Tensor, trip: int
+) -> Dict[int, np.ndarray]:
+    """Last-iteration per-node values from an out trace (T, B, P).  Only
+    those cells leave the device."""
+    cells = [(t, pe, n) for (t, pe), (n, j) in asm.node_of_cell.items()
+             if j == trip - 1]
+    if not cells:
+        return {}
+    ts, pes, nodes = zip(*cells)
+    index = dict(device=outs.device, dtype=torch.long)
+    picked = outs[torch.tensor(ts, **index), :,
+                  torch.tensor(pes, **index)].cpu().numpy()
+    return {n: picked[i] for i, n in enumerate(nodes)}
+
+
+# ---------------------------------------------------------------------------
+# batched execution over one kernel
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class FuzzReport:
+    """Verdict of one (kernel, arch) fuzz run."""
+
+    kernel: str
+    arch: str
+    status: str                      # ok | mismatch
+    ii: Optional[int] = None
+    memories: int = 0
+    batch: int = 0
+    backend: str = "cuda"            # cuda (the kernel) | ref (plain, CPU)
+    failing: List[int] = field(default_factory=list)   # corpus indices
+    mismatches: List[str] = field(default_factory=list)  # capped sample
+    error: Optional[str] = None
+    map_time_s: float = 0.0          # 0: artifacts are mapped ahead of time
+    exec_time_s: float = 0.0
+    oracle_time_s: float = 0.0
+    mem_rate: float = 0.0            # memories verified per second
+    activity: Optional[Dict] = None  # not ported yet: always None
+    energy: Optional[Dict] = None    # not ported yet: always None
+    reproducer: Optional[str] = None
+    divergence: Optional[Dict] = None
+
+    @property
+    def ok(self) -> bool:
+        return self.status == "ok"
+
+    def to_dict(self) -> Dict:
+        return dataclasses.asdict(self)
+
+
+_MISMATCH_SAMPLE_CAP = 8
+
+
+def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
+                 device="cuda") -> FuzzReport:
+    """Differentially fuzz one artifact over a corpus.
+
+    Chunks ``mems`` (N, M) into batches of ``batch`` memories, executes
+    each chunk in one ``run_program``, runs the batched oracle on the same
+    chunk, and compares under the ``verify`` contract.
+    """
+    dev = resolve_device(device)
+    asm, program = artifact.asm, artifact.program
+    mems = np.asarray(mems, np.int32)
+    if mems.ndim == 1:
+        mems = mems[None, :]
+    n = mems.shape[0]
+    rep = FuzzReport(kernel=artifact.kernel, arch=artifact.arch,
+                     status="ok", ii=asm.ii, memories=n,
+                     batch=min(batch, n) if n else batch,
+                     backend="cuda" if dev.type == "cuda" else "ref")
+    t_exec = t_oracle = 0.0
+    t_total0 = time.monotonic()
+    for lo in range(0, n, batch):
+        chunk = mems[lo:lo + batch]
+        t0 = time.monotonic()
+        final, outs, _ = execute_asm(asm, artifact.grid, chunk,
+                                     batch=chunk.shape[0], device=dev)
+        sim_vals = node_values_from_outs(asm, outs, program.trip)
+        sim_mem = final.mem.cpu().numpy()
+        t_exec += time.monotonic() - t0
+        t0 = time.monotonic()
+        oracle_vals, oracle_mem = batched_oracle(program, chunk)
+        t_oracle += time.monotonic() - t0
+        bad = compare_batch(sim_vals, sim_mem, oracle_vals, oracle_mem)
+        for i in np.nonzero(bad)[0]:
+            rep.failing.append(lo + int(i))
+            if len(rep.mismatches) < _MISMATCH_SAMPLE_CAP:
+                rep.mismatches.extend(mismatch_strings(
+                    program, sim_vals, sim_mem, oracle_vals, oracle_mem,
+                    int(i), label=lo + int(i))[:_MISMATCH_SAMPLE_CAP])
+    wall = time.monotonic() - t_total0
+    rep.exec_time_s = round(t_exec, 4)
+    rep.oracle_time_s = round(t_oracle, 4)
+    rep.mem_rate = round(n / wall, 2) if wall > 0 and n else 0.0
+    rep.mismatches = rep.mismatches[:_MISMATCH_SAMPLE_CAP]
+    if rep.failing:
+        rep.status = "mismatch"
+    return rep
+
+
+def fuzz_kernel(name: str, arch: str = "4x4", memories: int = 1024,
+                batch: int = 1024, seed: int = 0,
+                strategies: Optional[Sequence[str]] = None,
+                device="cuda") -> FuzzReport:
+    """Fuzz the shipped artifact of ``name`` on ``arch`` end to end:
+    corpus -> batched differential run."""
+    artifact = load_artifact(arch, name)
+    mems = make_corpus(artifact, memories, seed=seed, strategies=strategies)
+    return fuzz_program(artifact, mems, batch=batch, device=device)

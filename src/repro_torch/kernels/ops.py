@@ -1,0 +1,77 @@
+"""Run a whole instruction grid on the PE-array state.
+
+Counterpart of ``src/repro/kernels/ops.py``: ``run_program`` takes the
+place of its ``lax.scan`` with a loop over the T rows.  On the card each
+row is one launch of the cycle-step kernel; two state buffers alternate
+between rows and each row's OUT is written straight into the trace.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..cgra.isa import OPS
+from ..device import resolve_device
+from .pe_array import cycle_step
+from .ref import InstrRow, PEState
+
+
+def decode_fields(words: np.ndarray, device="cuda") -> InstrRow:
+    """(T, P) uint32 bitstream -> stacked int32 instruction fields."""
+    w = np.asarray(words, np.uint32).astype(np.int64)
+    op = (w >> 27) & 0x1F
+    if op.size and op.max() >= len(OPS):
+        raise ValueError(f"opcode {int(op.max())} is not in the ISA")
+    imm = w & 0xFFFF
+    imm = np.where(imm >= 1 << 15, imm - (1 << 16), imm)
+    dev = resolve_device(device)
+    return InstrRow(*(torch.as_tensor(f.astype(np.int32), device=dev)
+                      for f in (op, (w >> 24) & 0x7, (w >> 20) & 0xF,
+                                (w >> 16) & 0xF, imm)))
+
+
+def init_state(batch: int, num_pes: int, mem: np.ndarray,
+               device="cuda") -> PEState:
+    """Zeroed PE state; ``mem`` is one (M,) image for every row or (batch, M)."""
+    mem = np.asarray(mem, np.int32)
+    if mem.ndim == 1:
+        mem = np.broadcast_to(mem, (batch,) + mem.shape)
+    dev = resolve_device(device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    return PEState(regs=zeros(batch, num_pes, 4), out=zeros(batch, num_pes),
+                   sf=zeros(batch, num_pes), zf=zeros(batch, num_pes),
+                   mem=torch.tensor(mem, device=dev))
+
+
+def run_program(fields: InstrRow, state: PEState,
+                neighbors: Sequence[Sequence[int]], device="cuda",
+                trace: bool = True
+                ) -> Tuple[PEState, Optional[torch.Tensor]]:
+    """Run every instruction row.  Returns (final state, out trace (T, B, P)
+    or None when ``trace`` is off), both on ``device``; ``state`` is left
+    unchanged."""
+    dev = resolve_device(device)
+    nbr = np.asarray(neighbors, np.int32)
+    B, P = state.out.shape
+    if nbr.shape != (P, 4) or nbr.min() < 0 or nbr.max() >= P:
+        raise ValueError(f"neighbors must be a (P, 4) table of PE ids < {P}")
+    nbr_t = torch.as_tensor(nbr, device=dev)
+    fields = InstrRow(*(f.to(dev, torch.int32).contiguous() for f in fields))
+    state = PEState(*(t.to(dev, torch.int32).contiguous() for t in state))
+    T = fields.op.shape[0]
+    outs = (torch.empty((T, B, P), dtype=torch.int32, device=dev)
+            if trace else None)
+    buffers = [PEState(*(torch.empty_like(t) for t in state))
+               for _ in range(min(T, 2))]
+    rows = [InstrRow(*row) for row in zip(*(f.unbind(0) for f in fields))]
+    for t, row in enumerate(rows):
+        into = buffers[t % 2]
+        if trace:
+            into = into._replace(out=outs[t])
+        state = cycle_step(state, row, nbr_t, out=into)
+    return state, outs

@@ -1,0 +1,132 @@
+"""repro_torch.fuzz against repro.fuzz: corpora byte for byte, the batched
+oracle, fuzz verdicts and mismatch strings (also under an injected fault),
+and the CLI digest.  Everything runs on the CPU with exact equality.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch", reason="optional extra: pip install .[torch]")
+pytest.importorskip("jax", reason="optional extra: pip install .[jax]")
+
+from repro.cgra.registry import kernel_program  # noqa: E402
+from repro.fuzz import cli as jax_cli  # noqa: E402
+from repro.fuzz import corpus as jax_corpus  # noqa: E402
+from repro.fuzz import engine as jax_engine  # noqa: E402
+from repro.fuzz.triage import inject_fault  # noqa: E402
+from repro_torch.cgra.artifact import load_artifact  # noqa: E402
+from repro_torch.convert import artifact_from_parts  # noqa: E402
+from repro_torch.fuzz import corpus, engine  # noqa: E402
+from torch_parity import SHIPPED, jax_asm, jax_grid  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+VERDICT_KERNELS = [("4x4", "gsm"), ("4x4", "stringsearch"),
+                   ("4x4", "ema_fxp"), ("4x4", "fir4"), ("3x3", "sqrt")]
+
+
+@pytest.mark.parametrize("arch,kernel", SHIPPED)
+def test_corpus_matches_jax_byte_for_byte(arch, kernel):
+    art = load_artifact(arch, kernel)
+    for seed in (0, 3):
+        port = corpus.make_corpus(art, 25, seed=seed)
+        want = jax_corpus.make_corpus(kernel, 25, seed=seed)
+        assert port.dtype == want.dtype
+        assert port.tobytes() == want.tobytes()
+    sparse = corpus.make_corpus(art, 4, strategies=("sparse", "overflow"))
+    assert sparse.tobytes() == jax_corpus.make_corpus(
+        kernel, 4, strategies=("sparse", "overflow")).tobytes()
+
+
+@pytest.mark.parametrize("arch,kernel", SHIPPED)
+def test_batched_oracle_matches_jax(arch, kernel):
+    art = load_artifact(arch, kernel)
+    mems = corpus.make_corpus(art, 40, seed=1)
+    vals, final = engine.batched_oracle(art.program, mems)
+    j_vals, j_final = jax_engine.batched_oracle(kernel_program(kernel), mems)
+    assert vals.keys() == j_vals.keys()
+    for n in vals:
+        np.testing.assert_array_equal(vals[n], j_vals[n], err_msg=str(n))
+    np.testing.assert_array_equal(final, j_final)
+
+
+@pytest.mark.parametrize("arch,kernel", [("4x4", "gsm"), ("3x3", "sqrt")])
+def test_batched_oracle_iterations_match_jax(arch, kernel):
+    art = load_artifact(arch, kernel)
+    mems = corpus.make_corpus(art, 12)
+    port = engine.batched_oracle_iterations(art.program, mems)
+    want = jax_engine.batched_oracle_iterations(kernel_program(kernel), mems)
+    assert len(port) == len(want) == art.program.trip
+    for it, (a, b) in enumerate(zip(port, want)):
+        assert a.keys() == b.keys(), it
+        for n in a:
+            np.testing.assert_array_equal(a[n], b[n], err_msg=f"{it}/{n}")
+
+
+def _jax_fuzz(art, mems, asm=None):
+    mapping = SimpleNamespace(grid=jax_grid(art))   # only the grid is read
+    return jax_engine.fuzz_program(
+        kernel_program(art.kernel), mapping, mems, batch=32,
+        collect_activity=False, asm=asm or jax_asm(art.asm),
+        kernel=art.kernel, arch=art.arch)
+
+
+def _verdict(rep):
+    return rep.status, rep.failing, rep.mismatches
+
+
+@pytest.mark.parametrize("arch,kernel", VERDICT_KERNELS)
+def test_fuzz_program_verdicts_match_jax(arch, kernel):
+    art = load_artifact(arch, kernel)
+    mems = corpus.make_corpus(art, 64)
+    rep = engine.fuzz_program(art, mems, batch=32, device="cpu")
+    assert rep.backend == "ref" and rep.activity is None
+    assert _verdict(rep) == _verdict(_jax_fuzz(art, mems))
+    assert rep.status == "ok"
+
+
+def test_injected_fault_reports_match_jax():
+    art = load_artifact("4x4", "gsm")
+    mutated, _, _ = inject_fault(jax_asm(art.asm))
+    faulty = dataclasses.replace(art, asm=artifact_from_parts(
+        mutated.name, mutated.ii, mutated.trip, mutated.words(),
+        mutated.presets_out, mutated.presets_reg, mutated.node_of_cell))
+    assert (faulty.asm.words() != art.asm.words()).sum() == 1
+    mems = corpus.make_corpus(art, 64)
+    rep = engine.fuzz_program(faulty, mems, batch=32, device="cpu")
+    want = _jax_fuzz(art, mems, asm=mutated)
+    assert rep.status == "mismatch" and rep.failing
+    assert _verdict(rep) == _verdict(want)
+
+
+#: digest fields that differ by design: the backend name, wall-clock
+#: timings, and the activity/energy harvest the port has not ported yet
+_VARIES = ("backend", "map_time_s", "exec_time_s", "oracle_time_s",
+           "mem_rate", "activity", "energy")
+
+
+def _comparable(doc):
+    doc = {k: v for k, v in doc.items() if k not in _VARIES}
+    doc["results"] = [{k: v for k, v in r.items() if k not in _VARIES}
+                      for r in doc["results"]]
+    return doc
+
+
+def test_cli_digest_matches_jax(capsys):
+    argv = ["--kernels", "bitcount", "--memories", "32", "--json"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "fuzz", "--device", "cpu",
+         *argv], capture_output=True, text=True, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    port = json.loads(proc.stdout)
+    assert jax_cli.main(argv) == 0
+    want = json.loads(capsys.readouterr().out)
+    assert port["backend"] == "ref"
+    assert _comparable(port) == _comparable(want)
