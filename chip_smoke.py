@@ -3,25 +3,36 @@
 
     python3 chip_smoke.py
 
-Builds the cycle-step kernel from ``src/repro_torch/kernels/csrc`` with
-nvcc, then, printing one JSON object per line:
+Builds the PE-array kernels (the cycle step and the whole-program run) from
+``src/repro_torch/kernels/csrc`` with nvcc, then, printing one JSON object
+per line:
 
 1. the card (nvidia-smi name and power limit, torch and CUDA versions);
 2. the build and its time;
-3. the kernel against its plain PyTorch version on the card, bit-equal on
-   all five state fields after every step: random collision-free programs
-   over P in {4, 9, 16, 25, 36}, M in {64, 128, 256}, B in {1, 37, 1000,
-   4096}, and every shipped artifact's full program at B=1024;
+3. a. the cycle step against its plain PyTorch version on the card,
+      bit-equal on all five state fields after every step: random
+      collision-free programs over P in {4, 9, 16, 25, 36}, M in {64, 128,
+      256}, B in {1, 37, 1000, 4096};
+   b. every shipped artifact's full program at B=1024 through
+      ``run_program`` (one whole-program launch each) against a loop of
+      the plain step;
+   c. the whole-program run against its plain version and against a chain
+      of cycle-step launches, trace and final state bit-equal: random
+      programs of 64 rows on the same grid of shapes, plus programs of 0
+      and 1 rows and an all-NOP program;
 4. the main path: ``fuzz_kernel`` on all 16 artifacts, 2048 memories in
    batches of 1024, every verdict ``ok`` and equal to the status of the
-   same kernel in ``results/BENCH_fuzz.json``; the kernel's launch count
-   over that run must equal the rows run;
+   same kernel in ``results/BENCH_fuzz.json``; the whole-program kernel
+   must launch once per batch chunk and the cycle step never;
 5. a stream: gsm over 65,536 memories in batches of 16,384, and one
    main-path run of gsm under ``torch.profiler`` (device busy and idle
    share, the kernel's device time per launch);
-6. kernel time per launch at B in {1024, 16384}, P=16, M=128: device time
-   under ``torch.profiler`` and the host's issue pace with CUDA events,
-   beside its byte bound and the plain version's times;
+6. times at B in {1024, 16384}: the cycle step per launch on a random row
+   (P=16, M=128), and the whole-program run on gsm's program (T=84), each
+   as device time under ``torch.profiler`` and at the host's issue pace
+   with CUDA events, beside its byte bound and its plain version; for the
+   whole-program run also the serial floor (an all-NOP program of the same
+   length, no trace);
 7. the kernels line, then the device line last.
 
 Any failure raises and exits non-zero.  Without CUDA it exits 1 and
@@ -57,6 +68,17 @@ def check(cond: bool, what: str) -> None:
 def state_bytes(B: int, P: int, M: int) -> int:
     """Bytes one cycle step must move: the state read once, written once."""
     return 2 * 4 * B * (7 * P + M)
+
+
+def program_bytes(T: int, B: int, P: int, M: int, trace: bool = True) -> int:
+    """Bytes a whole-program run must move: the state read and written
+    once, the (T, B, P) trace written once, the five (T, P) instruction
+    fields read once."""
+    return state_bytes(B, P, M) + 4 * T * B * P * trace + 20 * T * P
+
+
+def max_diff(a, b) -> int:
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
 def card_line() -> str:
@@ -108,7 +130,7 @@ def kernel_vs_plain(device) -> int:
                     kern = cycle_step(kern, row, nbr)
                     plain = cycle_step_ref(plain, row, nbr)
                     for name, a, b in zip(PEState._fields, kern, plain):
-                        diff = int((a.long() - b.long()).abs().max())
+                        diff = max_diff(a, b)
                         worst = max(worst, diff)
                         check(diff == 0, f"P={P} M={M} B={B} step {t}: "
                                          f"{name} differs by {diff}")
@@ -128,10 +150,12 @@ def artifacts_vs_plain(device, artifacts) -> int:
     from repro_torch.cgra.simulator import preset_state
     from repro_torch.fuzz.corpus import make_corpus
     from repro_torch.kernels.ops import decode_fields, run_program
+    from repro_torch.kernels.pe_array import run_cycles
     from repro_torch.kernels.ref import InstrRow, cycle_step_ref
 
     worst = 0
     t0 = time.monotonic()
+    before = run_cycles.launches
     for art in artifacts:
         mems = make_corpus(art, MAIN_BATCH, seed=7)
         fields = decode_fields(art.asm.words(), device)
@@ -143,35 +167,98 @@ def artifacts_vs_plain(device, artifacts) -> int:
         plain = state
         for t, row in enumerate(zip(*(f.unbind(0) for f in fields))):
             plain = cycle_step_ref(plain, InstrRow(*row), nbr_t)
-            diff = int((outs[t].long() - plain.out.long()).abs().max())
+            diff = max_diff(outs[t], plain.out)
             worst = max(worst, diff)
             check(diff == 0, f"{art.kernel}: out differs at row {t}")
         for name, a, b in zip(plain._fields, final, plain):
-            diff = int((a.long() - b.long()).abs().max())
+            diff = max_diff(a, b)
             worst = max(worst, diff)
             check(diff == 0, f"{art.kernel}: final {name} differs")
+    launches = run_cycles.launches - before
+    check(launches == len(artifacts),
+          f"run_cycles launched {launches} times for {len(artifacts)} "
+          f"programs")
     emit({"phase": "artifacts_vs_plain", "artifacts": len(artifacts),
-          "batch": MAIN_BATCH, "max_abs_err": worst,
-          "seconds": round(time.monotonic() - t0, 3)})
+          "batch": MAIN_BATCH, "run_cycles_launches": launches,
+          "max_abs_err": worst, "seconds": round(time.monotonic() - t0, 3)})
     return worst
 
 
-def main_path(artifacts, device) -> int:
-    """Phase 4: the fuzz path on every artifact.  Returns the kernel's
-    launches over the run."""
+def run_cycles_vs_plain(device) -> int:
+    """Phase 3c: the whole-program kernel against its plain version and a
+    chain of cycle-step launches, on random programs (64 rows, the 3a grid
+    of shapes, other seeds), programs of 0 and 1 rows and an all-NOP
+    program.  Returns the largest absolute difference seen."""
+    import numpy as np
+    import torch
+    from repro_torch.cgra.arch import neighbor_table
+    from repro_torch.cgra.isa import OPCODE
+    from repro_torch.kernels.pe_array import cycle_step, run_cycles
+    from repro_torch.kernels.ref import InstrRow, PEState, run_cycles_ref
+    from repro_torch.kernels.sample import random_fields, random_state
+
+    cases = [(P, M, B, SWEEP_STEPS, False) for P in (4, 9, 16, 25, 36)
+             for M in (64, 128, 256) for B in (1, 37, 1000, 4096)]
+    cases += [(P, 128, 1000, T, nop) for P in (4, 16, 36)
+              for T, nop in ((0, False), (1, False), (SWEEP_STEPS, True))]
+    worst = 0
+    t0 = time.monotonic()
+    before = run_cycles.launches
+    for P, M, B, T, nop in cases:
+        nbr = torch.as_tensor(np.asarray(neighbor_table(grid_for(P)),
+                                         np.int32), device=device)
+        rng = np.random.RandomState(7 + P * 100_003 + M * 101 + B + T)
+        f = random_fields(rng, T, P, M, full_encoding=True)
+        if nop:
+            f["op"][:] = OPCODE["NOP"]
+        f = tensors(f, device)
+        fields = InstrRow(*(f[k] for k in InstrRow._fields))
+        state = PEState(**tensors(random_state(rng, B, P, M), device))
+        final, outs = run_cycles(fields, state, nbr)
+        plain, plain_outs = run_cycles_ref(fields, state, nbr)
+        chain = state
+        for t in range(T):
+            chain = cycle_step(chain, InstrRow(*(x[t] for x in fields)), nbr)
+            diff = max_diff(outs[t], chain.out)
+            worst = max(worst, diff)
+            check(diff == 0, f"P={P} M={M} B={B} T={T}: out at row {t} "
+                             f"differs from the cycle-step chain by {diff}")
+        check(tuple(outs.shape) == (T, B, P), f"trace shape {outs.shape}")
+        diff = max_diff(outs, plain_outs)
+        worst = max(worst, diff)
+        check(diff == 0, f"P={P} M={M} B={B} T={T}: trace differs from "
+                         f"the plain version by {diff}")
+        for name, a, b, c in zip(PEState._fields, final, plain, chain):
+            diff = max(max_diff(a, b), max_diff(a, c))
+            worst = max(worst, diff)
+            check(diff == 0, f"P={P} M={M} B={B} T={T}: final {name} "
+                             f"differs by {diff}")
+    launches = run_cycles.launches - before
+    want = sum(1 for case in cases if case[3] > 0)
+    check(launches == want, f"run_cycles launched {launches} times for "
+                            f"{want} programs with rows")
+    emit({"phase": "run_cycles_vs_plain", "cases": len(cases),
+          "rows_each": SWEEP_STEPS, "run_cycles_launches": launches,
+          "max_abs_err": worst, "seconds": round(time.monotonic() - t0, 3)})
+    return worst
+
+
+def main_path(artifacts, device):
+    """Phase 4: the fuzz path on every artifact.  Returns the launches of
+    (cycle_step, run_cycles) over the run."""
     from repro_torch.fuzz.engine import fuzz_kernel
-    from repro_torch.kernels.pe_array import cycle_step
+    from repro_torch.kernels.pe_array import cycle_step, run_cycles
 
     bench = json.loads((ROOT / "results" / "BENCH_fuzz.json").read_text())
     expected_status = {row["kernel"]: row["status"] for row in bench["rows"]}
     chunks = -(-MAIN_MEMORIES // MAIN_BATCH)
     rows_run = sum(a.asm.total_rows * chunks for a in artifacts)
     t0 = time.monotonic()
-    cycle_step.launches = 0
+    cycle_step.launches = run_cycles.launches = 0
     reports = [fuzz_kernel(a.kernel, a.arch, memories=MAIN_MEMORIES,
                            batch=MAIN_BATCH, seed=0, device=device)
                for a in artifacts]
-    launches = cycle_step.launches
+    steps, runs = cycle_step.launches, run_cycles.launches
     wall = time.monotonic() - t0
     for rep in reports:
         emit({"phase": "fuzz", "kernel": rep.kernel, "arch": rep.arch,
@@ -184,29 +271,34 @@ def main_path(artifacts, device) -> int:
         check(rep.status == expected_status.get(rep.kernel),
               f"{rep.kernel}: status {rep.status} != BENCH_fuzz.json "
               f"{expected_status.get(rep.kernel)}")
-    check(launches == rows_run,
-          f"cycle_step launched {launches} times, rows run {rows_run}")
+    check(runs == len(artifacts) * chunks,
+          f"run_cycles launched {runs} times, not once for each of "
+          f"{len(artifacts) * chunks} batch chunks")
+    check(steps == 0, f"cycle_step launched {steps} times on the main path")
     emit({"phase": "main_path", "kernels": len(reports),
           "memories_each": MAIN_MEMORIES, "batch": MAIN_BATCH,
-          "cycle_step_launches": launches, "rows_run": rows_run,
-          "seconds": round(wall, 3)})
-    return launches
+          "run_cycles_launches": runs, "cycle_step_launches": steps,
+          "rows_run": rows_run, "seconds": round(wall, 3)})
+    return steps, runs
 
 
 def stream_phase(device) -> None:
     """Phase 5: one kernel over a large corpus in large batches."""
     from repro_torch.fuzz.engine import fuzz_kernel
-    from repro_torch.kernels.pe_array import cycle_step
+    from repro_torch.kernels.pe_array import run_cycles
 
-    cycle_step.launches = 0
+    run_cycles.launches = 0
     rep = fuzz_kernel("gsm", "4x4", memories=STREAM_MEMORIES,
                       batch=STREAM_BATCH, seed=1, device=device)
     check(rep.status == "ok" and rep.failing == [],
           f"gsm stream: {rep.status} {rep.mismatches[:2]}")
-    check(cycle_step.launches > 0, "stream ran no kernel launch")
+    chunks = -(-STREAM_MEMORIES // STREAM_BATCH)
+    check(run_cycles.launches == chunks,
+          f"stream: run_cycles launched {run_cycles.launches} times, "
+          f"not {chunks}")
     emit({"phase": "stream", "kernel": "gsm", "arch": "4x4",
           "memories": rep.memories, "batch": rep.batch,
-          "cycle_step_launches": cycle_step.launches,
+          "run_cycles_launches": run_cycles.launches,
           "mem_rate": rep.mem_rate, "exec_time_s": rep.exec_time_s,
           "oracle_time_s": rep.oracle_time_s})
 
@@ -251,16 +343,20 @@ def profile_phase(device) -> None:
 
     events = on_device(prof)
     busy_us = sum(device_us(e) for e in events)
-    kern = [e for e in events if "cycle_step_kernel" in e.key]
-    launches = sum(e.count for e in kern)
-    kern_us = sum(device_us(e) for e in kern)
+    fused = [e for e in events if "run_cycles_kernel" in e.key]
+    steps = [e for e in events if "cycle_step_kernel" in e.key]
+    launches = sum(e.count for e in fused)
+    fused_us = sum(device_us(e) for e in fused)
+    chunks = -(-MAIN_MEMORIES // MAIN_BATCH)
+    check(launches == chunks, f"profile saw {launches} run_cycles_kernel "
+                              f"launches, not {chunks}")
+    check(not steps, "profile saw cycle_step_kernel on the main path")
     emit({"phase": "profile", "kernel": "gsm", "memories": MAIN_MEMORIES,
           "batch": MAIN_BATCH, "wall_us": wall_us,
           "device_busy_us": busy_us,
           "idle_share": (1 - busy_us / wall_us) if busy_us else None,
-          "kernel_launches": launches,
-          "kernel_device_us_per_launch":
-              (kern_us / launches) if launches else None,
+          "run_cycles_kernel_launches": launches,
+          "run_cycles_kernel_device_us_per_launch": fused_us / launches,
           "top": [(e.key[:80], e.count, device_us(e)) for e in sorted(
               events, key=device_us, reverse=True)[:6]]})
 
@@ -310,7 +406,7 @@ def device_ms(fn, calls: int) -> float:
 def timing(device):
     """Phase 6: kernel and plain time per cycle step at the fuzz path's
     shapes, as device time and at the host's issue pace.  Returns
-    {B: (kernel_ms, plain_ms, bound_ms)}, device times."""
+    {B: (kernel_ms, kernel_paced_ms, plain_ms, bound_ms)}."""
     import numpy as np
     import torch
     from repro_torch.cgra.arch import neighbor_table
@@ -342,7 +438,7 @@ def timing(device):
         plain_ms = device_ms(plain_step, 20)
         plain_paced_ms = host_paced_ms(plain_step, 20, 7)
         bound_ms = state_bytes(B, TIMED_P, TIMED_M) / HBM_BYTES_PER_S * 1e3
-        out[B] = (kernel_ms, plain_ms, bound_ms)
+        out[B] = (kernel_ms, kernel_paced_ms, plain_ms, bound_ms)
         emit({"phase": "timing", "kernel": "pe_array.cycle_step", "B": B,
               "P": TIMED_P, "M": TIMED_M,
               "kernel_device_us": kernel_ms * 1e3,
@@ -351,6 +447,67 @@ def timing(device):
               "plain_host_paced_us": plain_paced_ms * 1e3,
               "bound_us": bound_ms * 1e3,
               "bytes": state_bytes(B, TIMED_P, TIMED_M)})
+    return out
+
+
+def program_timing(device, step_times):
+    """Phase 6b: the whole-program kernel on gsm's program (T=84, P=16,
+    M=128) from its preset state, as device time and at the host's issue
+    pace, beside its byte bound, its serial floor (an all-NOP program of
+    the same length without a trace: T cycles of two barriers each), the
+    plain loop, and T cycle-step launches timed in phase 6.  Returns
+    {B: (kernel_ms, plain_ms, bound_ms)}."""
+    import numpy as np
+    import torch
+    from repro_torch.cgra.arch import neighbor_table
+    from repro_torch.cgra.artifact import load_artifact
+    from repro_torch.cgra.simulator import preset_state
+    from repro_torch.fuzz.corpus import make_corpus
+    from repro_torch.kernels.ops import decode_fields
+    from repro_torch.kernels.pe_array import run_cycles
+    from repro_torch.kernels.ref import run_cycles_ref
+
+    art = load_artifact("4x4", "gsm")
+    fields = decode_fields(art.asm.words(), device)
+    nops = fields._replace(op=torch.zeros_like(fields.op))
+    T, P = fields.op.shape
+    nbr = torch.as_tensor(np.asarray(neighbor_table(art.grid), np.int32),
+                          device=device)
+    mems = make_corpus(art, MAIN_BATCH, seed=7)
+    out = {}
+    for B in TIMED_BATCHES:
+        state = preset_state(art.asm, P, np.resize(mems, (B, mems.shape[1])),
+                             B, device)
+        M = state.mem.shape[1]
+
+        def fused():
+            run_cycles(fields, state, nbr)
+
+        def floor():
+            run_cycles(nops, state, nbr, trace=False)
+
+        def plain():
+            run_cycles_ref(fields, state, nbr)
+
+        kernel_ms = device_ms(fused, 50)
+        paced_ms = host_paced_ms(fused, 50, 15)
+        floor_ms = device_ms(floor, 50)
+        plain_ms = device_ms(plain, 2)
+        bound_ms = program_bytes(T, B, P, M) / HBM_BYTES_PER_S * 1e3
+        step_ms, step_paced_ms = step_times[B][:2]
+        out[B] = (kernel_ms, plain_ms, bound_ms)
+        emit({"phase": "timing", "kernel": "pe_array.run_cycles",
+              "program": "gsm", "B": B, "T": T, "P": P, "M": M,
+              "kernel_device_us": kernel_ms * 1e3,
+              "kernel_host_paced_us": paced_ms * 1e3,
+              "bound_us": bound_ms * 1e3,
+              "bytes": program_bytes(T, B, P, M),
+              "trace_bytes": 4 * T * B * P,
+              "serial_floor_device_us": floor_ms * 1e3,
+              "serial_floor_us_per_cycle": floor_ms * 1e3 / T,
+              "plain_device_us": plain_ms * 1e3,
+              "cycle_step_x_T_device_us": step_ms * T * 1e3,
+              "cycle_step_x_T_host_paced_us": step_paced_ms * T * 1e3})
     return out
 
 
@@ -383,26 +540,29 @@ def main() -> int:
                  for name in artifact_names(arch)]
     check(len(artifacts) == 16, f"{len(artifacts)} artifacts shipped, not 16")
 
-    err = max(kernel_vs_plain(device), artifacts_vs_plain(device, artifacts))
-    launches = main_path(artifacts, device)
+    step_err = kernel_vs_plain(device)
+    fused_err = max(artifacts_vs_plain(device, artifacts),
+                    run_cycles_vs_plain(device))
+    steps, runs = main_path(artifacts, device)
     stream_phase(device)
     profile_phase(device)
-    times = timing(device)
+    step_times = timing(device)
+    fused_times = program_timing(device, step_times)
 
-    kernel_ms, plain_ms, bound_ms = times[MAIN_BATCH]
-    emit({"kernels": [{
-        "name": "pe_array.cycle_step",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/pe_array.cu",
-        "replaces": "src/repro/kernels/pe_array.py:67",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes",
-        "library_ms": None,
-    }]})
+    def line(name, launches, err, ms, plain_ms, bound_ms):
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/pe_array.cu",
+                "replaces": "src/repro/kernels/pe_array.py:67",
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "bytes", "library_ms": None}
+
+    step_ms, _, step_plain_ms, step_bound_ms = step_times[MAIN_BATCH]
+    emit({"kernels": [
+        line("pe_array.cycle_step", steps, step_err, step_ms, step_plain_ms,
+             step_bound_ms),
+        line("pe_array.run_cycles", runs, fused_err,
+             *fused_times[MAIN_BATCH])]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,1 +1,2 @@
-"""The PE-array cycle step (CUDA kernel and plain version) and run_program."""
+"""The PE-array cycle step and whole-program run (CUDA kernels and plain
+versions) and run_program."""

@@ -70,8 +70,10 @@ def build() -> Build:
 def library() -> ctypes.CDLL:
     """The loaded kernel library with its C entry points typed."""
     lib = ctypes.CDLL(str(build().path))
-    fn = lib.pe_cycle_step
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    lib.pe_cycle_step.argtypes = ([ctypes.c_void_p] * 16
+                                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.pe_run_cycles.argtypes = ([ctypes.c_void_p] * 17
+                                  + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    for fn in (lib.pe_cycle_step, lib.pe_run_cycles):
+        fn.restype = ctypes.c_int
     return lib

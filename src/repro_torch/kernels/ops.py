@@ -1,9 +1,9 @@
 """Run a whole instruction grid on the PE-array state.
 
 Counterpart of ``src/repro/kernels/ops.py``: ``run_program`` takes the
-place of its ``lax.scan`` with a loop over the T rows.  On the card each
-row is one launch of the cycle-step kernel; two state buffers alternate
-between rows and each row's OUT is written straight into the trace.
+place of its ``lax.scan``.  On the card the whole program is one launch of
+the fused kernel (``pe_array.run_cycles``); on the CPU it is the loop of
+the plain cycle step.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import torch
 
 from ..cgra.isa import OPS
 from ..device import resolve_device
-from .pe_array import cycle_step
+from .pe_array import run_cycles
 from .ref import InstrRow, PEState
 
 
@@ -57,21 +57,10 @@ def run_program(fields: InstrRow, state: PEState,
     unchanged."""
     dev = resolve_device(device)
     nbr = np.asarray(neighbors, np.int32)
-    B, P = state.out.shape
+    P = state.out.shape[1]
     if nbr.shape != (P, 4) or nbr.min() < 0 or nbr.max() >= P:
         raise ValueError(f"neighbors must be a (P, 4) table of PE ids < {P}")
     nbr_t = torch.as_tensor(nbr, device=dev)
     fields = InstrRow(*(f.to(dev, torch.int32).contiguous() for f in fields))
     state = PEState(*(t.to(dev, torch.int32).contiguous() for t in state))
-    T = fields.op.shape[0]
-    outs = (torch.empty((T, B, P), dtype=torch.int32, device=dev)
-            if trace else None)
-    buffers = [PEState(*(torch.empty_like(t) for t in state))
-               for _ in range(min(T, 2))]
-    rows = [InstrRow(*row) for row in zip(*(f.unbind(0) for f in fields))]
-    for t, row in enumerate(rows):
-        into = buffers[t % 2]
-        if trace:
-            into = into._replace(out=outs[t])
-        state = cycle_step(state, row, nbr_t, out=into)
-    return state, outs
+    return run_cycles(fields, state, nbr_t, trace=trace)

@@ -1,30 +1,42 @@
-"""The CGRA cycle step on the card: wrapper of the hand-written CUDA kernel
-``csrc/pe_array.cu``, which replaces ``repro/kernels/pe_array.py``'s
-Pallas ``_cycle_kernel``.
+"""The CGRA PE array on the card: wrappers of the hand-written CUDA kernels
+in ``csrc/pe_array.cu``.
 
-``cycle_step`` launches the kernel for CUDA tensors and raises if it
-cannot.  CPU tensors go to the plain version, ``ref.cycle_step_ref``.
-``cycle_step.launches`` counts kernel launches and nothing else.
+``cycle_step`` launches ``cycle_step_kernel``, one cycle, which replaces
+``repro/kernels/pe_array.py``'s Pallas ``_cycle_kernel``.  ``run_cycles``
+launches ``run_cycles_kernel``, every row of a program in one launch, which
+replaces the ``lax.scan`` of that kernel in ``repro/kernels/ops.py``.
+
+Each wrapper launches its kernel for CUDA tensors and raises if it cannot.
+CPU tensors go to the plain versions, ``ref.cycle_step_ref`` and
+``ref.run_cycles_ref``.  ``cycle_step.launches`` and ``run_cycles.launches``
+count kernel launches and nothing else.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .ref import InstrRow, PEState, cycle_step_ref
+from .ref import InstrRow, PEState, cycle_step_ref, run_cycles_ref
+
+MAX_THREADS = 256                  # kThreads in csrc/pe_array.cu
+RUN_CYCLES_THREADS = 64            # target block size of run_cycles_kernel
+DEFAULT_SHARED_BYTES = 48 * 1024   # without cudaFuncSetAttribute
+MAX_SHARED_BYTES = 232_448         # 227 KB a block on sm_90
 
 
-def _check(state: PEState, instr: InstrRow, neighbors: torch.Tensor,
-           out: PEState) -> None:
+def _check(state: PEState, fields: InstrRow, field_shape: Tuple[int, ...],
+           neighbors: torch.Tensor, out: Optional[PEState] = None) -> None:
     B, P = state.out.shape
     M = state.mem.shape[1]
     shapes = {"regs": (B, P, 4), "out": (B, P), "sf": (B, P),
               "zf": (B, P), "mem": (B, M)}
     device = state.out.device
+    outs = [] if out is None else out._asdict().items()
     named = ([(f"state.{k}", t, shapes[k]) for k, t in state._asdict().items()]
-             + [(f"out.{k}", t, shapes[k]) for k, t in out._asdict().items()]
-             + [(f"instr.{k}", t, (P,)) for k, t in instr._asdict().items()]
+             + [(f"out.{k}", t, shapes[k]) for k, t in outs]
+             + [(f"instr.{k}", t, field_shape)
+                for k, t in fields._asdict().items()]
              + [("neighbors", neighbors, (P, 4))])
     for name, t, shape in named:
         if t.device != device or t.dtype != torch.int32:
@@ -33,11 +45,17 @@ def _check(state: PEState, instr: InstrRow, neighbors: torch.Tensor,
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous {shape}, got "
                              f"{tuple(t.shape)}")
-    for src, dst in zip(state, out):
-        if src.data_ptr() == dst.data_ptr():
-            raise ValueError("output buffers must not alias the input state")
-    if not 0 < P <= 256:
-        raise ValueError(f"{P} PEs: the kernel takes 1 to 256")
+    if out is not None:
+        for src, dst in zip(state, out):
+            if src.data_ptr() == dst.data_ptr():
+                raise ValueError("output buffers must not alias the input "
+                                 "state")
+    if not 0 < P <= MAX_THREADS:
+        raise ValueError(f"{P} PEs: the kernels take 1 to {MAX_THREADS}")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def cycle_step(state: PEState, instr: InstrRow, neighbors: torch.Tensor,
@@ -58,14 +76,13 @@ def cycle_step(state: PEState, instr: InstrRow, neighbors: torch.Tensor,
         raise ValueError(f"cycle_step runs on cuda or cpu, not {device}")
     if out is None:
         out = PEState(*(torch.empty_like(t) for t in state))
-    _check(state, instr, neighbors, out)
+    B, P = state.out.shape
+    _check(state, instr, (P,), neighbors, out)
     from .build import library
 
-    B, P = state.out.shape
     M = state.mem.shape[1]
-    stream = torch.cuda.current_stream(device).cuda_stream
     ptrs = [t.data_ptr() for t in (*instr, neighbors, *state, *out)]
-    status = library().pe_cycle_step(*ptrs, B, P, M, stream)
+    status = library().pe_cycle_step(*ptrs, B, P, M, _stream(device))
     if status != 0:
         raise RuntimeError(f"pe_cycle_step launch failed: cudaError {status}")
     cycle_step.launches += 1
@@ -73,3 +90,66 @@ def cycle_step(state: PEState, instr: InstrRow, neighbors: torch.Tensor,
 
 
 cycle_step.launches = 0
+
+
+class Geometry(NamedTuple):
+    rows_per_block: int   # R whole batch rows a block
+    threads: int          # R * P rounded up to a warp
+    blocks: int
+    shared_bytes: int     # R * (M + 2P) int32 words: mem_s and out_s[2]
+
+
+def run_cycles_geometry(B: int, P: int, M: int) -> Geometry:
+    """Launch shape of ``run_cycles_kernel`` for B batch rows of P PEs and
+    M memory words.  Blocks of about ``RUN_CYCLES_THREADS`` threads, so
+    that B=1024 at P=16 gives 256 blocks for the 132 SMs; as many rows as
+    fit in 48 KB of shared memory, and one row a block up to 227 KB."""
+    if not 0 < P <= MAX_THREADS:
+        raise ValueError(f"{P} PEs: run_cycles takes 1 to {MAX_THREADS}")
+    row_bytes = 4 * (M + 2 * P)
+    if row_bytes > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"M={M}, P={P}: a batch row needs {row_bytes} bytes of shared "
+            f"memory, above the {MAX_SHARED_BYTES} (227 KB) a block may have")
+    rows = max(1, min(RUN_CYCLES_THREADS // P,
+                      DEFAULT_SHARED_BYTES // row_bytes))
+    threads = -(-rows * P // 32) * 32
+    return Geometry(rows, threads, -(-B // rows), rows * row_bytes)
+
+
+def run_cycles(fields: InstrRow, state: PEState, neighbors: torch.Tensor,
+               trace: bool = True) -> Tuple[PEState, Optional[torch.Tensor]]:
+    """Every row of a program: ``fields`` holds (T, P) int32 tensors.
+    Returns (final state, out trace (T, B, P) or None when ``trace`` is
+    off) in fresh tensors; ``state`` is left unchanged."""
+    device = state.out.device
+    if device.type == "cpu":
+        return run_cycles_ref(fields, state, neighbors, trace)
+    if device.type != "cuda":
+        raise ValueError(f"run_cycles runs on cuda or cpu, not {device}")
+    if fields.op.dim() != 2:
+        raise ValueError(f"instr.op: expected a (T, P) program, got "
+                         f"{tuple(fields.op.shape)}")
+    T = fields.op.shape[0]
+    B, P = state.out.shape
+    M = state.mem.shape[1]
+    _check(state, fields, (T, P), neighbors)
+    outs = (torch.empty((T, B, P), dtype=torch.int32, device=device)
+            if trace else None)
+    if T == 0:
+        return PEState(*(t.clone() for t in state)), outs
+    geom = run_cycles_geometry(B, P, M)
+    out = PEState(*(torch.empty_like(t) for t in state))
+    from .build import library
+
+    ptrs = [t.data_ptr() for t in (*fields, neighbors, *state, *out)]
+    status = library().pe_run_cycles(
+        *ptrs, None if outs is None else outs.data_ptr(), T, B, P, M, *geom,
+        _stream(device))
+    if status != 0:
+        raise RuntimeError(f"pe_run_cycles launch failed: cudaError {status}")
+    run_cycles.launches += 1
+    return out, outs
+
+
+run_cycles.launches = 0

@@ -22,7 +22,7 @@ Where the two JAX executors are the reference, this follows them:
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -138,3 +138,20 @@ def cycle_step_ref(state: PEState, instr: InstrRow,
     new_regs = torch.where(hit, res[:, :, None], regs)
     return PEState(regs=new_regs, out=new_out, sf=new_sf, zf=new_zf,
                    mem=new_mem)
+
+
+def run_cycles_ref(fields: InstrRow, state: PEState, neighbors: torch.Tensor,
+                   trace: bool = True
+                   ) -> Tuple[PEState, Optional[torch.Tensor]]:
+    """Every row of a program (``fields`` holds (T, P) tensors): the loop of
+    :func:`cycle_step_ref` that the JAX package's ``lax.scan`` runs.
+    Returns (final state, out trace (T, B, P) or None); the input is left
+    unchanged."""
+    T = fields.op.shape[0]
+    outs = state.out.new_empty((T, *state.out.shape)) if trace else None
+    for t in range(T):
+        state = cycle_step_ref(state, InstrRow(*(f[t] for f in fields)),
+                               neighbors)
+        if trace:
+            outs[t] = state.out
+    return state, outs

@@ -1,5 +1,6 @@
-"""The CUDA cycle-step kernel against its plain PyTorch version, on the
-card.  These need an NVIDIA GPU with nvcc (the kernel has no CPU mode):
+"""The CUDA kernels (cycle step and whole-program run) against their plain
+PyTorch versions, on the card.  These need an NVIDIA GPU with nvcc (the
+kernels have no CPU mode):
 they carry the ``cuda`` marker and skip elsewhere.  They import nothing of
 JAX, so they run where only the port is installed::
 
@@ -20,7 +21,8 @@ from repro_torch.convert import fields_from_numpy, state_from_numpy  # noqa: E40
 from repro_torch.fuzz.corpus import make_corpus  # noqa: E402
 from repro_torch.fuzz.engine import fuzz_program  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.pe_array import cycle_step  # noqa: E402
+from repro_torch.cgra.isa import OPCODE  # noqa: E402
+from repro_torch.kernels.pe_array import cycle_step, run_cycles  # noqa: E402
 from repro_torch.kernels.sample import random_fields, random_state  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -100,3 +102,67 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         cycle_step(state._replace(regs=state.regs.transpose(0, 1)), row, nbr)
     with pytest.raises(ValueError, match="alias"):
         cycle_step(state, row, nbr, out=state)
+
+
+@pytest.mark.parametrize("T,nop", [(16, False), (0, False), (1, False),
+                                   (8, True)])
+@pytest.mark.parametrize("side,batch,M", [
+    (2, 1, 64), (2, 8, 128), (3, 37, 128), (4, 1000, 256), (5, 3, 128),
+    (6, 4096, 128)])
+def test_run_cycles_matches_plain_version_and_step_chain(cuda, side, batch,
+                                                         M, T, nop):
+    f, s, nbrs = _case(side, batch, M, T)
+    if nop:
+        f["op"][:] = OPCODE["NOP"]
+    nbr = torch.as_tensor(np.asarray(nbrs, np.int32), device=cuda)
+    fields = fields_from_numpy(*(f[k] for k in FIELDS), device=cuda)
+    state = state_from_numpy(*(s[k] for k in STATE), device=cuda)
+    before = run_cycles.launches
+    final, outs = run_cycles(fields, state, nbr)
+    torch.cuda.synchronize()
+    assert run_cycles.launches == before + (T > 0)
+    plain, plain_outs = ref.run_cycles_ref(fields, state, nbr)
+    assert outs.shape == (T, batch, side * side)
+    assert torch.equal(outs, plain_outs)
+    chain = state
+    for t in range(T):
+        chain = cycle_step(chain, ref.InstrRow(*(x[t] for x in fields)), nbr)
+        assert torch.equal(outs[t], chain.out), f"out after step {t}"
+    for name, a, b, c in zip(STATE, final, plain, chain):
+        assert torch.equal(a, b) and torch.equal(a, c), name
+    untraced, none = run_cycles(fields, state, nbr, trace=False)
+    assert none is None
+    for a, b in zip(untraced, final):
+        assert torch.equal(a, b)
+
+
+def test_run_cycles_rejects_what_the_kernel_does_not_take(cuda):
+    f, s, nbrs = _case(2, 4, 64, 3)
+    nbr = torch.as_tensor(np.asarray(nbrs, np.int32), device=cuda)
+    state = state_from_numpy(*(s[k] for k in STATE), device=cuda)
+    fields = fields_from_numpy(*(f[k] for k in FIELDS), device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        run_cycles(fields._replace(op=fields.op.long()), state, nbr)
+    with pytest.raises(ValueError, match="int32"):
+        run_cycles(fields, state._replace(mem=state.mem.long()), nbr)
+    with pytest.raises(ValueError, match="contiguous"):
+        run_cycles(fields, state._replace(regs=state.regs.transpose(0, 1)),
+                   nbr)
+    with pytest.raises(ValueError, match="contiguous"):
+        run_cycles(fields._replace(imm=fields.imm[:, :2]), state, nbr)
+    with pytest.raises(ValueError, match="contiguous"):
+        run_cycles(fields, state, nbr[:3])
+    with pytest.raises(ValueError, match="program"):
+        run_cycles(ref.InstrRow(*(x[0] for x in fields)), state, nbr)
+
+
+@pytest.mark.parametrize("arch,kernel", [("4x4", "gsm"), ("3x3", "sqrt"),
+                                         ("4x4", "ema_fxp")])
+def test_fuzz_program_launches_run_cycles_once_per_chunk(cuda, arch, kernel):
+    art = load_artifact(arch, kernel)
+    mems = make_corpus(art, 300)
+    steps, runs = cycle_step.launches, run_cycles.launches
+    rep = fuzz_program(art, mems, batch=128, device=cuda)
+    assert rep.status == "ok"
+    assert run_cycles.launches - runs == 3
+    assert cycle_step.launches == steps

@@ -24,7 +24,9 @@ from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro_torch.convert import fields_from_numpy, state_from_numpy  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.pe_array import cycle_step  # noqa: E402
+from repro_torch.kernels.pe_array import (  # noqa: E402
+    DEFAULT_SHARED_BYTES, MAX_SHARED_BYTES, cycle_step, run_cycles,
+    run_cycles_geometry)
 from repro_torch.kernels.sample import random_fields, random_state  # noqa: E402
 
 SWEEP = [((2, 2), 1, 64), ((2, 2), 8, 128), ((3, 3), 4, 128),
@@ -45,6 +47,19 @@ def _case(rows_cols, batch, M, T, full_encoding=False):
     f = random_fields(rng, T, P, M, full_encoding=full_encoding)
     s = random_state(rng, batch, P, M)
     return f, s, neighbor_table(make_grid(*rows_cols))
+
+
+#: programs for the whole-program run: (rows, all NOPs)
+PROGRAMS = {"random": (12, False), "empty": (0, False), "one_row": (1, False),
+            "all_nop": (8, True)}
+
+
+def _program(rows_cols, batch, M, kind):
+    T, nop = PROGRAMS[kind]
+    f, s, nbrs = _case(rows_cols, batch, M, T)
+    if nop:
+        f["op"][:] = OPCODE["NOP"]
+    return f, s, nbrs
 
 
 def _jax_state(s):
@@ -117,6 +132,21 @@ def test_run_program_matches_pallas_interpret(rows_cols, batch, M,
     _assert_state_equal(final, j_final)
 
 
+@pytest.mark.parametrize("kind", list(PROGRAMS))
+@pytest.mark.parametrize("rows_cols,batch,M", SWEEP)
+def test_run_cycles_ref_matches_jax_run_program(rows_cols, batch, M, kind):
+    f, s, nbrs = _program(rows_cols, batch, M, kind)
+    final, outs = ref.run_cycles_ref(
+        fields_from_numpy(*(f[k] for k in FIELDS), device="cpu"),
+        state_from_numpy(*(s[k] for k in STATE), device="cpu"),
+        torch.as_tensor(np.asarray(nbrs, np.int32)))
+    j_final, j_outs = jax_ops.run_program(_jax_fields(f), _jax_state(s),
+                                          nbrs, backend="ref")
+    assert outs.shape == j_outs.shape
+    np.testing.assert_array_equal(outs.numpy(), np.asarray(j_outs))
+    _assert_state_equal(final, j_final)
+
+
 def _alu_expected(op, a, b):
     if op == "FXPMUL":    # the executors wrap the product to int32 first
         return alu_semantics("SMUL", a, b) >> 16
@@ -180,6 +210,49 @@ def test_cpu_tensors_take_the_plain_version():
     assert cycle_step.launches == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_run_cycles_on_cpu_tensors_takes_the_plain_version():
+    f, s, nbrs = _case((3, 3), 4, 128, T=5)
+    nbr = torch.as_tensor(np.asarray(nbrs, np.int32))
+    fields = fields_from_numpy(*(f[k] for k in FIELDS), device="cpu")
+    state = state_from_numpy(*(s[k] for k in STATE), device="cpu")
+    before = run_cycles.launches, cycle_step.launches
+    got, got_outs = run_cycles(fields, state, nbr)
+    want, want_outs = ref.run_cycles_ref(fields, state, nbr)
+    assert (run_cycles.launches, cycle_step.launches) == before
+    assert torch.equal(got_outs, want_outs)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    _, none = run_cycles(fields, state, nbr, trace=False)
+    assert none is None
+
+
+def test_run_cycles_geometry_fills_the_card_at_the_main_path_batch():
+    geom = run_cycles_geometry(1024, 16, 128)
+    assert geom.blocks >= 132          # the H100's SMs
+    assert geom.rows_per_block * 16 <= geom.threads <= 256
+    assert geom.threads % 32 == 0
+
+
+@pytest.mark.parametrize("B", [1, 37, 1000, 4096])
+def test_run_cycles_geometry_fits_48kb_on_the_sweep(B):
+    for P in (4, 9, 16, 25, 36):
+        for M in (64, 128, 256):
+            geom = run_cycles_geometry(B, P, M)
+            R = geom.rows_per_block
+            assert geom.shared_bytes == R * (M + 2 * P) * 4
+            assert geom.shared_bytes <= DEFAULT_SHARED_BYTES
+            assert R * P <= geom.threads <= 256 and geom.threads % 32 == 0
+            assert (geom.blocks - 1) * R < B <= geom.blocks * R
+
+
+def test_run_cycles_geometry_raises_past_227kb():
+    M = MAX_SHARED_BYTES // 4          # with 2P words of OUT, one row too big
+    assert run_cycles_geometry(8, 16, M - 32).rows_per_block == 1
+    assert run_cycles_geometry(8, 16, M - 32).shared_bytes == MAX_SHARED_BYTES
+    with pytest.raises(ValueError, match="227 KB"):
+        run_cycles_geometry(8, 16, M)
 
 
 @given(st.integers(0, 10_000))
