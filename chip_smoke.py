@@ -20,10 +20,25 @@ per line:
       of cycle-step launches, trace and final state bit-equal: random
       programs of 64 rows on the same grid of shapes, plus programs of 0
       and 1 rows and an all-NOP program;
+   d. the stacked run (K programs of one grid in one launch) against its
+      plain version and against K single whole-program launches, trace and
+      final state bit-equal: random programs of different lengths,
+      NOP-padded, K in {1, 2, 5}, P in {9, 16}, B in {1, 37, 1000};
 4. the main path: ``fuzz_kernel`` on all 16 artifacts, 2048 memories in
    batches of 1024, every verdict ``ok`` and equal to the status of the
    same kernel in ``results/BENCH_fuzz.json``; the whole-program kernel
    must launch once per batch chunk and the cycle step never;
+   b. the stacked main path: ``fuzz_stacked`` on the 15 4x4 artifacts x
+      2048 seed-0 memories, one launch, every verdict ``ok`` and its
+      failing memories equal to phase 4's and to ``stacked_failing`` in
+      ``results/BENCH_fuzz.json``;
+   c. activity and energy: every phase 4 report carries both; for gsm,
+      fir4 and sqrt they equal the CPU plain path's on the same corpus;
+      and ``mem_rate`` with activity on and off, in turns, per kernel;
+   d. triage on the card: gsm with an injected fault over 2048 memories
+      gives the CPU run's verdicts, shrinks to the same memory and
+      divergence, and writes the CPU run's reproducer apart from
+      ``backend`` (under ``build/``);
 5. a stream: gsm over 65,536 memories in batches of 16,384, and one
    main-path run of gsm under ``torch.profiler`` (device busy and idle
    share, the kernel's device time per launch);
@@ -32,7 +47,11 @@ per line:
    as device time under ``torch.profiler`` and at the host's issue pace
    with CUDA events, beside its byte bound and its plain version; for the
    whole-program run also the serial floor (an all-NOP program of the same
-   length, no trace);
+   length, no trace); and the stacked run of the 15 4x4 programs at
+   B=2048 (T=112), first held bit-equal, trace and final state, to its
+   plain version and to 15 single launches at that shape, then timed
+   beside its byte bound, its serial floor, those 15 single launches and
+   its plain version;
 7. the kernels line, then the device line last.
 
 Any failure raises and exits non-zero.  Without CUDA it exits 1 and
@@ -41,6 +60,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -51,6 +71,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 SWEEP_STEPS = 64
 MAIN_MEMORIES, MAIN_BATCH = 2048, 1024
+STACK_ARCH = "4x4"                 # the stacked rung of BENCH_fuzz.json
+ACTIVITY_KERNELS = (("4x4", "gsm"), ("4x4", "fir4"), ("3x3", "sqrt"))
+FAILURES_DIR = ROOT / "build" / "chip_smoke_failures"
 STREAM_MEMORIES, STREAM_BATCH = 65536, 16384
 TIMED_BATCHES = (1024, 16384)
 TIMED_P, TIMED_M = 16, 128
@@ -243,6 +266,88 @@ def run_cycles_vs_plain(device) -> int:
     return worst
 
 
+def check_stack(fields, state, nbr, singles, what: str) -> int:
+    """One stacked launch of NOP-padded programs against the plain version
+    and against a single launch of each unpadded program (``singles``):
+    trace, padding rows and every final-state tensor bit-equal.  Returns
+    the largest absolute difference seen (0, or it raises)."""
+    from repro_torch.kernels.pe_array import run_cycles
+    from repro_torch.kernels.ref import PEState, run_stacked_ref
+
+    K, T_max, P = fields.op.shape
+    B = state.out.shape[1]
+    before = run_cycles.launches
+    final, outs = run_cycles(fields, state, nbr)
+    check(run_cycles.launches - before == 1,
+          f"{what}: the stack took {run_cycles.launches - before} "
+          f"launches, not 1")
+    check(tuple(outs.shape) == (K, T_max, B, P),
+          f"{what}: stacked trace shape {tuple(outs.shape)}")
+    plain, plain_outs = run_stacked_ref(fields, state, nbr)
+    worst = max_diff(outs, plain_outs)
+    check(worst == 0, f"{what}: stacked trace differs from the plain "
+                      f"version by {worst}")
+    for name, a, b in zip(PEState._fields, final, plain):
+        diff = max_diff(a, b)
+        worst = max(worst, diff)
+        check(diff == 0, f"{what}: final {name} differs from the plain "
+                         f"version by {diff}")
+    for k, single in enumerate(singles):
+        T = single.op.shape[0]
+        s_final, s_outs = run_cycles(single, PEState(*(t[k] for t in state)),
+                                     nbr)
+        diff = max_diff(outs[k, :T], s_outs)
+        if T < T_max:      # a padding row repeats the program's last row
+            diff = max(diff, max_diff(outs[k, T:], s_outs[-1:].expand(
+                T_max - T, B, P)))
+        for a, b in zip(final, s_final):
+            diff = max(diff, max_diff(a[k], b))
+        worst = max(worst, diff)
+        check(diff == 0, f"{what}: program {k} (T={T}) differs from its "
+                         f"single launch by {diff}")
+    return worst
+
+
+def stacked_vs_plain(device) -> int:
+    """Phase 3d: the stacked whole-program kernel (K programs of different
+    lengths, NOP-padded, in one launch) against its plain version and
+    against K single launches of the unpadded programs.  Returns the
+    largest absolute difference seen."""
+    import numpy as np
+    import torch
+    from repro_torch.cgra.arch import neighbor_table
+    from repro_torch.fuzz.engine import _pad_fields
+    from repro_torch.kernels.ref import InstrRow, PEState
+    from repro_torch.kernels.sample import random_fields, random_state
+
+    M = 128
+    cases = [(K, P, B) for K in (1, 2, 5) for P in (9, 16)
+             for B in (1, 37, 1000)]
+    worst = 0
+    t0 = time.monotonic()
+    for K, P, B in cases:
+        nbr = torch.as_tensor(np.asarray(neighbor_table(grid_for(P)),
+                                         np.int32), device=device)
+        rng = np.random.RandomState(11 + K * 1009 + P * 101 + B)
+        lengths = [SWEEP_STEPS * (5 - k) // 5 for k in range(K)]
+        progs = [random_fields(rng, T, P, M, full_encoding=True)
+                 for T in lengths]
+        states = [random_state(rng, B, P, M) for _ in range(K)]
+        singles = [InstrRow(*(torch.as_tensor(f[n], device=device)
+                              for n in InstrRow._fields)) for f in progs]
+        fields = InstrRow(*(torch.stack(fs) for fs in zip(
+            *(_pad_fields(f, SWEEP_STEPS) for f in singles))))
+        state = PEState(*(torch.as_tensor(np.stack([s[k] for s in states]),
+                                          device=device)
+                          for k in PEState._fields))
+        worst = max(worst, check_stack(fields, state, nbr, singles,
+                                       f"K={K} P={P} B={B}"))
+    emit({"phase": "stacked_vs_plain", "cases": len(cases),
+          "rows_max": SWEEP_STEPS, "stacked_launches": len(cases),
+          "max_abs_err": worst, "seconds": round(time.monotonic() - t0, 3)})
+    return worst
+
+
 def main_path(artifacts, device):
     """Phase 4: the fuzz path on every artifact.  Returns the launches of
     (cycle_step, run_cycles) over the run."""
@@ -279,7 +384,149 @@ def main_path(artifacts, device):
           "memories_each": MAIN_MEMORIES, "batch": MAIN_BATCH,
           "run_cycles_launches": runs, "cycle_step_launches": steps,
           "rows_run": rows_run, "seconds": round(wall, 3)})
-    return steps, runs
+    return steps, runs, reports
+
+
+def stacked_main_path(artifacts, single_reports, device) -> int:
+    """Phase 4b: ``fuzz_stacked`` on every 4x4 artifact over its seed-0
+    corpus of 2048 memories, as the stacked rung of
+    ``benchmarks/fuzz_throughput.py`` runs it.  Returns the launches of
+    the whole-program kernel over the run (one)."""
+    import numpy as np
+    from repro_torch.fuzz.corpus import make_corpus
+    from repro_torch.fuzz.engine import fuzz_stacked
+    from repro_torch.kernels.pe_array import cycle_step, run_cycles
+
+    bench = json.loads((ROOT / "results" / "BENCH_fuzz.json").read_text())
+    stacked_failing = {row["kernel"]: row.get("stacked_failing")
+                       for row in bench["rows"]}
+    single = {r.kernel: r for r in single_reports}
+    stack = [a for a in artifacts if a.arch == STACK_ARCH]
+    mems = np.stack([make_corpus(a, MAIN_MEMORIES, seed=0) for a in stack])
+    t0 = time.monotonic()
+    cycle_step.launches = run_cycles.launches = 0
+    reports = fuzz_stacked(stack, mems, device=device)
+    steps, runs = cycle_step.launches, run_cycles.launches
+    wall = time.monotonic() - t0
+    for rep in reports:
+        check(rep.status == "ok" and rep.backend == "cuda",
+              f"stacked {rep.kernel}: {rep.status} {rep.mismatches[:2]}")
+        check(rep.failing == single[rep.kernel].failing,
+              f"stacked {rep.kernel}: failing {rep.failing} != the single "
+              f"run's {single[rep.kernel].failing}")
+        check(rep.failing == stacked_failing.get(rep.kernel),
+              f"stacked {rep.kernel}: failing {rep.failing} != "
+              f"BENCH_fuzz.json {stacked_failing.get(rep.kernel)}")
+    check(runs == 1, f"fuzz_stacked launched run_cycles {runs} times")
+    check(steps == 0, f"cycle_step launched {steps} times on the stack")
+    emit({"phase": "stacked_main_path", "kernels": len(reports),
+          "memories_each": MAIN_MEMORIES,
+          "t_max": max(a.asm.total_rows for a in stack),
+          "rows_real": sum(a.asm.total_rows for a in stack),
+          "run_cycles_launches": runs, "cycle_step_launches": steps,
+          "exec_time_s_each": reports[0].exec_time_s,
+          "mem_rate": [r.mem_rate for r in reports],
+          "seconds": round(wall, 3)})
+    return runs
+
+
+def activity_phase(reports) -> None:
+    """Phase 4c: every main-path report carries activity and energy; for a
+    few kernels they equal the CPU plain path's on the same corpus."""
+    from repro_torch.fuzz.engine import fuzz_kernel
+
+    for rep in reports:
+        check(rep.activity is not None and rep.energy is not None,
+              f"{rep.kernel}: no activity or energy on the main path")
+        check(rep.activity["memories"] == MAIN_MEMORIES,
+              f"{rep.kernel}: activity over {rep.activity['memories']} "
+              f"memories")
+    on_card = {(r.arch, r.kernel): r for r in reports}
+    t0 = time.monotonic()
+    for arch, kernel in ACTIVITY_KERNELS:
+        cpu = fuzz_kernel(kernel, arch, memories=MAIN_MEMORIES,
+                          batch=MAIN_BATCH, seed=0, device="cpu")
+        card = on_card[(arch, kernel)]
+        check(card.activity == cpu.activity,
+              f"{kernel}: activity on the card differs from the CPU path's")
+        check(card.energy == cpu.energy,
+              f"{kernel}: energy on the card {card.energy} != CPU "
+              f"{cpu.energy}")
+    emit({"phase": "activity", "reports_with_activity": len(reports),
+          "equal_to_cpu": [k for _, k in ACTIVITY_KERNELS],
+          "energy": {r.kernel: r.energy["delta_pct"] for r in reports},
+          "seconds": round(time.monotonic() - t0, 3)})
+
+
+def activity_cost(artifacts, device) -> None:
+    """Phase 4c, part two: what the activity harvest costs ``mem_rate``.
+    ``fuzz_program`` on every artifact's 2048-memory seed-0 corpus with
+    activity on and off, in turns (on, off, off, on) after one warm run
+    of each, so both sides see the same card and host."""
+    from repro_torch.fuzz.corpus import make_corpus
+    from repro_torch.fuzz.engine import fuzz_program
+
+    corpora = [(a, make_corpus(a, MAIN_MEMORIES, seed=0)) for a in artifacts]
+    rates = {(a.kernel, on): [] for a in artifacts for on in (True, False)}
+    t0 = time.monotonic()
+    for rnd, on in enumerate((None, True, False, False, True)):
+        for art, mems in corpora:
+            for flag in ((True, False) if on is None else (on,)):
+                rep = fuzz_program(art, mems, batch=MAIN_BATCH,
+                                   device=device, collect_activity=flag)
+                check(rep.status == "ok", f"{art.kernel}: {rep.status}")
+                if on is not None:
+                    rates[(art.kernel, flag)].append(rep.mem_rate)
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    ratios = [med[(a.kernel, True)] / med[(a.kernel, False)]
+              for a in artifacts]
+    emit({"phase": "activity_cost", "memories": MAIN_MEMORIES,
+          "batch": MAIN_BATCH, "runs_each": 2,
+          "mem_rate_on": {a.kernel: med[(a.kernel, True)] for a in artifacts},
+          "mem_rate_off": {a.kernel: med[(a.kernel, False)]
+                           for a in artifacts},
+          "on_over_off": {a.kernel: r for a, r in zip(artifacts, ratios)},
+          "on_over_off_median": statistics.median(ratios),
+          "seconds": round(time.monotonic() - t0, 3)})
+
+
+def triage_phase(device) -> None:
+    """Phase 4d: an injected fault in gsm, fuzzed, shrunk and explained on
+    the card exactly as on the CPU."""
+    import dataclasses
+    from repro_torch.cgra.artifact import load_artifact
+    from repro_torch.fuzz.corpus import make_corpus
+    from repro_torch.fuzz.engine import fuzz_program
+    from repro_torch.fuzz.triage import inject_fault, triage_failure
+
+    art = load_artifact("4x4", "gsm")
+    mutated, cell, label = inject_fault(art.asm)
+    faulty = dataclasses.replace(art, asm=mutated)
+    mems = make_corpus(art, MAIN_MEMORIES, seed=0)
+    t0 = time.monotonic()
+    runs = {}
+    for name, dev in (("cuda", device), ("ref", "cpu")):
+        rep = fuzz_program(faulty, mems, batch=MAIN_BATCH, device=dev,
+                           collect_activity=False)
+        triage_failure(faulty, mems, rep, device=dev,
+                       out_dir=str(FAILURES_DIR / name))
+        runs[name] = rep
+    card, cpu = runs["cuda"], runs["ref"]
+    check(card.status == cpu.status == "mismatch",
+          f"injected fault: {card.status} on the card, {cpu.status} on "
+          f"the CPU")
+    check(card.failing == cpu.failing, "injected fault: failing memories "
+                                       "differ between card and CPU")
+    check(card.divergence == cpu.divergence is not None,
+          f"divergence {card.divergence} != CPU {cpu.divergence}")
+    docs = [json.loads(Path(r.reproducer).read_text()) for r in (card, cpu)]
+    check(docs[0].pop("backend") == "cuda" and docs[1].pop("backend") == "ref"
+          and docs[0] == docs[1], "reproducers differ apart from backend")
+    emit({"phase": "triage", "kernel": "gsm", "fault": label,
+          "cell": list(cell), "memories": MAIN_MEMORIES,
+          "failing": len(card.failing), "divergence": card.divergence,
+          "reproducer": os.path.relpath(card.reproducer, ROOT),
+          "seconds": round(time.monotonic() - t0, 3)})
 
 
 def stream_phase(device) -> None:
@@ -383,14 +630,14 @@ def host_paced_ms(fn, calls: int, reps: int) -> float:
     return statistics.median(per)
 
 
-def device_ms(fn, calls: int) -> float:
+def device_ms(fn, calls: int, warmup: int = 3) -> float:
     """Milliseconds of device time per call of ``fn``: the GPU time of
     every kernel and copy it ran, over ``calls`` calls, under
     ``torch.profiler`` (gaps between launches left out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -511,6 +758,79 @@ def program_timing(device, step_times):
     return out
 
 
+def stacked_timing(device, artifacts):
+    """Phase 6c: the stacked whole-program kernel on the 15 4x4 programs
+    (NOP-padded to T_max=112) at B=2048 from their preset states, as
+    device time and at the host's issue pace, beside its byte bound, its
+    serial floor (an all-NOP stack of the same shape, no trace), 15 single
+    launches of the unpadded programs, and the plain version.  Before the
+    timing, the stack's trace and final state at this shape are held bit
+    for bit against the plain version and the 15 single launches.  Returns
+    (max_abs_err, kernel_ms, plain_ms, bound_ms)."""
+    import numpy as np
+    import torch
+    from repro_torch.cgra.arch import neighbor_table
+    from repro_torch.cgra.simulator import stacked_preset_state
+    from repro_torch.fuzz.corpus import make_corpus
+    from repro_torch.fuzz.engine import _pad_words
+    from repro_torch.kernels.ops import decode_fields
+    from repro_torch.kernels.pe_array import run_cycles
+    from repro_torch.kernels.ref import PEState, run_stacked_ref
+
+    stack = [a for a in artifacts if a.arch == STACK_ARCH]
+    K, B = len(stack), MAIN_MEMORIES
+    T = max(a.asm.total_rows for a in stack)
+    P = stack[0].grid.num_pes
+    fields = decode_fields(np.stack([_pad_words(a.asm.words(), T)
+                                     for a in stack]), device)
+    nops = fields._replace(op=torch.zeros_like(fields.op))
+    singles = [decode_fields(a.asm.words(), device) for a in stack]
+    state = stacked_preset_state(
+        [a.asm for a in stack], P,
+        np.stack([make_corpus(a, B, seed=0) for a in stack]), device)
+    states = [PEState(*(t[k] for t in state)) for k in range(K)]
+    M = state.mem.shape[-1]
+    nbr = torch.as_tensor(np.asarray(neighbor_table(stack[0].grid),
+                                     np.int32), device=device)
+
+    err = check_stack(fields, state, nbr, singles,
+                      f"stack of {K} at B={B}")
+
+    def stacked():
+        run_cycles(fields, state, nbr)
+
+    def floor():
+        run_cycles(nops, state, nbr, trace=False)
+
+    def one_by_one():
+        for f, s in zip(singles, states):
+            run_cycles(f, s, nbr)
+
+    def plain():
+        run_stacked_ref(fields, state, nbr)
+
+    kernel_ms = device_ms(stacked, 20)
+    paced_ms = host_paced_ms(stacked, 20, 15)
+    floor_ms = device_ms(floor, 20)
+    singles_ms = device_ms(one_by_one, 10)
+    singles_paced_ms = host_paced_ms(one_by_one, 10, 9)
+    plain_ms = device_ms(plain, 1, warmup=1)
+    bytes_ = K * program_bytes(T, B, P, M)
+    bound_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    rows_real = sum(a.asm.total_rows for a in stack)
+    emit({"phase": "timing", "kernel": "pe_array.run_cycles (stacked)",
+          "programs": K, "B": B, "T_max": T, "rows_real": rows_real,
+          "rows_padded": K * T, "P": P, "M": M,
+          "kernel_device_us": kernel_ms * 1e3,
+          "kernel_host_paced_us": paced_ms * 1e3,
+          "bound_us": bound_ms * 1e3, "bytes": bytes_,
+          "serial_floor_device_us": floor_ms * 1e3,
+          "single_launches_device_us": singles_ms * 1e3,
+          "single_launches_host_paced_us": singles_paced_ms * 1e3,
+          "plain_device_us": plain_ms * 1e3, "max_abs_err": err})
+    return err, kernel_ms, plain_ms, bound_ms
+
+
 def main() -> int:
     import torch
 
@@ -521,6 +841,7 @@ def main() -> int:
     from repro_torch.cgra.artifact import artifact_names, load_artifact
     from repro_torch.kernels import build
 
+    t_start = time.monotonic()
     device = torch.device("cuda", 0)
     card = card_line()
     print(card, flush=True)
@@ -543,26 +864,37 @@ def main() -> int:
     step_err = kernel_vs_plain(device)
     fused_err = max(artifacts_vs_plain(device, artifacts),
                     run_cycles_vs_plain(device))
-    steps, runs = main_path(artifacts, device)
+    stacked_err = stacked_vs_plain(device)
+    steps, runs, reports = main_path(artifacts, device)
+    stacked_runs = stacked_main_path(artifacts, reports, device)
+    activity_phase(reports)
+    activity_cost(artifacts, device)
+    triage_phase(device)
     stream_phase(device)
     profile_phase(device)
     step_times = timing(device)
     fused_times = program_timing(device, step_times)
+    stacked_times = stacked_timing(device, artifacts)
 
-    def line(name, launches, err, ms, plain_ms, bound_ms):
+    def line(name, launches, err, ms, plain_ms, bound_ms,
+             replaces="src/repro/kernels/pe_array.py:67"):
         return {"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/pe_array.cu",
-                "replaces": "src/repro/kernels/pe_array.py:67",
+                "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": "bytes", "library_ms": None}
 
     step_ms, _, step_plain_ms, step_bound_ms = step_times[MAIN_BATCH]
+    emit({"phase": "done", "seconds": round(time.monotonic() - t_start, 3)})
     emit({"kernels": [
         line("pe_array.cycle_step", steps, step_err, step_ms, step_plain_ms,
              step_bound_ms),
         line("pe_array.run_cycles", runs, fused_err,
-             *fused_times[MAIN_BATCH])]})
+             *fused_times[MAIN_BATCH]),
+        line("pe_array.run_cycles (stacked)", stacked_runs,
+             max(stacked_err, stacked_times[0]), *stacked_times[1:],
+             replaces="src/repro/fuzz/engine.py:508")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,7 +2,10 @@
 grid, with the CIL program its oracle replays.
 
 ``AssembledCIL`` is the counterpart of ``src/repro/cgra/bitstream.py``'s
-class of that name, keeping the words rather than decoded rows.  An
+class of that name.  It keeps the words and decodes ``rows`` from them on
+first use, so a copy with other words (``dataclasses.replace(asm,
+bitstream=words)``, as ``fuzz.triage.inject_fault`` makes one) never
+carries the rows of the original.  An
 artifact is a JSON file under ``repro_torch/artifacts/<arch>/<kernel>.json``
 exported from the JAX package's mapper and assembler (see
 ``tests/test_torch_artifacts.py``); the port executes it and never maps.
@@ -11,13 +14,14 @@ from __future__ import annotations
 
 import json
 from dataclasses import dataclass
+from functools import cached_property
 from pathlib import Path
 from typing import Dict, List, Tuple
 
 import numpy as np
 
 from .arch import Grid
-from .isa import OPS
+from .isa import OPS, Instr, decode_program
 from .program import Program
 
 ARTIFACT_ROOT = Path(__file__).resolve().parents[1] / "artifacts"
@@ -36,6 +40,11 @@ class AssembledCIL:
 
     def words(self) -> np.ndarray:
         return self.bitstream
+
+    @cached_property
+    def rows(self) -> List[List[Instr]]:
+        """The decoded instruction grid, rows x PEs."""
+        return decode_program(self.bitstream)
 
     @property
     def total_rows(self) -> int:

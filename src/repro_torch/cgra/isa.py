@@ -48,6 +48,11 @@ def fits_imm(v: int) -> bool:
     return IMM_MIN <= v <= IMM_MAX
 
 
+LOAD_OPS = ("LWD", "LWI")
+STORE_OPS = ("SWD", "SWI")
+MUL_OPS = ("SMUL", "FXPMUL")
+
+
 @dataclass(frozen=True)
 class Instr:
     op: str

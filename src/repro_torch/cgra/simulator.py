@@ -9,7 +9,7 @@ Python oracle with the same mismatch strings.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,20 +28,38 @@ class SimResult:
     total_rows: int
 
 
+def preset_arrays(asm: AssembledCIL, num_pes: int
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """The (P,) OUT and (P, 4) register presets of ``asm`` that seed
+    loop-carried values for iteration 0, zeros elsewhere."""
+    out0 = np.zeros(num_pes, np.int32)
+    regs0 = np.zeros((num_pes, 4), np.int32)
+    for pe, val in asm.presets_out.items():
+        out0[pe] = val
+    for (pe, reg), val in asm.presets_reg.items():
+        regs0[pe, reg] = val
+    return out0, regs0
+
+
 def preset_state(asm: AssembledCIL, num_pes: int, mem: np.ndarray,
                  batch: int, device="cuda") -> PEState:
     """Initial PE-array state for ``asm``: zeros plus the register/output
-    presets that seed loop-carried values for iteration 0."""
-    out0 = np.zeros((batch, num_pes), np.int32)
-    regs0 = np.zeros((batch, num_pes, 4), np.int32)
-    for pe, val in asm.presets_out.items():
-        out0[:, pe] = val
-    for (pe, reg), val in asm.presets_reg.items():
-        regs0[:, pe, reg] = val
+    presets of :func:`preset_arrays` in every batch row."""
+    out0, regs0 = preset_arrays(asm, num_pes)
     state = init_state(batch, num_pes, mem, device)
     dev = state.mem.device
-    return state._replace(out=torch.as_tensor(out0, device=dev),
-                          regs=torch.as_tensor(regs0, device=dev))
+    return state._replace(
+        out=torch.as_tensor(np.repeat(out0[None], batch, 0), device=dev),
+        regs=torch.as_tensor(np.repeat(regs0[None], batch, 0), device=dev))
+
+
+def stacked_preset_state(asms: Sequence[AssembledCIL], num_pes: int,
+                         mems: np.ndarray, device="cuda") -> PEState:
+    """Initial state of K bitstreams of one grid over (K, B, M) memories:
+    the :func:`preset_state` of each on a leading K axis."""
+    states = [preset_state(asm, num_pes, mem, len(mem), device)
+              for asm, mem in zip(asms, mems)]
+    return PEState(*(torch.stack(ts) for ts in zip(*states)))
 
 
 def execute_asm(asm: AssembledCIL, grid: Grid, mem: np.ndarray,

@@ -5,10 +5,13 @@ Examples::
 
     python -m repro_torch fuzz --kernels all --memories 2048
     python -m repro_torch fuzz --kernels gsm,fir4 --device cpu --json
+    python -m repro_torch fuzz --kernels gsm --memories 4096 --shrink
 
 Each (kernel, arch) pair runs its shipped artifact over a deterministic
 seeded corpus in batched PE-array runs, checked against the vectorized
-oracle.  The JSON digest has the fields of ``python -m repro fuzz --json``;
+oracle, with its switching activity and energy delta.  ``--shrink`` turns
+mismatches into single-memory reproducer JSONs under ``--failures-dir``.
+The JSON digest has the fields of ``python -m repro fuzz --json``;
 ``backend`` is ``cuda`` on the card and ``ref`` on the CPU.
 """
 from __future__ import annotations
@@ -41,8 +44,19 @@ def _print_human(rep: FuzzReport) -> None:
     print(f"{rep.kernel} @ {rep.arch}: {verdict}  II={rep.ii}  "
           f"{rep.memories} memories @ {rep.mem_rate:.0f} mem/s "
           f"(batch {rep.batch}, {rep.backend})")
+    if rep.energy:
+        e = rep.energy
+        print(f"  dynamic energy: static {e['static_dynamic_nj']} nJ -> "
+              f"empirical {e['empirical_dynamic_nj']} nJ "
+              f"({e['delta_pct']:+.1f}%)")
     for line in rep.mismatches[:4]:
         print(f"  {line}")
+    if rep.divergence:
+        d = rep.divergence
+        print(f"  first divergence: cycle {d['cycle']}, PE {d['pe']}, "
+              f"node {d['node']} (iteration {d['iteration']})")
+    if rep.reproducer:
+        print(f"  reproducer: {rep.reproducer}")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -64,6 +78,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--strategies", default=None,
                     help=f"comma-separated corpus strategies "
                          f"(default: all of {','.join(STRATEGIES)})")
+    ap.add_argument("--shrink", action="store_true",
+                    help="on mismatch: bisect to one memory, replay the "
+                         "divergence, write a reproducer JSON")
+    ap.add_argument("--failures-dir", default="results/fuzz_failures",
+                    help="where --shrink writes reproducers")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda runs the kernel (default); cpu the plain "
                          "PyTorch version")
@@ -82,6 +101,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     for arch, name in plan:
         rep = fuzz_kernel(name, arch=arch, memories=args.memories,
                           batch=args.batch, seed=args.seed,
+                          shrink=args.shrink,
+                          failures_dir=args.failures_dir,
                           strategies=strategies, device=args.device)
         reports.append(rep)
         if not args.json:

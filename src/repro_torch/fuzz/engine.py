@@ -1,6 +1,6 @@
 """Batched differential engine: one bitstream, thousands of memories.
 
-Counterpart of ``src/repro/fuzz/engine.py`` (its single-kernel half):
+Counterpart of ``src/repro/fuzz/engine.py``:
 
 * :func:`batched_oracle`, a copy of the JAX package's: the serial oracle
   vectorized over a ``(B, M)`` memory batch in numpy int64, wrapped to
@@ -8,12 +8,14 @@ Counterpart of ``src/repro/fuzz/engine.py`` (its single-kernel half):
 * :func:`fuzz_program` chunks a corpus through
   :func:`repro_torch.cgra.simulator.execute_asm` (the PE array's batch
   axis, on the card by default), compares every last-iteration node value
-  and the final memory image against the batched oracle, and reports
-  per-memory verdicts with the comparison contract of ``verify``.
-* :func:`fuzz_kernel` loads a shipped artifact instead of mapping.
-
-Not ported yet: stacking K kernels in one run, triage and the switching
-activity harvest, so ``FuzzReport.activity`` and ``energy`` stay None.
+  and the final memory image against the batched oracle, reports
+  per-memory verdicts with the comparison contract of ``verify``, and
+  harvests switching activity from each chunk's trace on its device.
+* :func:`fuzz_kernel` loads a shipped artifact instead of mapping, adds
+  the activity-based energy delta and, on a mismatch, optionally triages.
+* :func:`run_stacked` / :func:`fuzz_stacked` stack NOP-padded bitstreams
+  of one grid on a leading kernel axis, so one kernel launch executes K
+  kernels x B memories.
 """
 from __future__ import annotations
 
@@ -25,11 +27,16 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..cgra.arch import neighbor_table
 from ..cgra.artifact import Artifact, AssembledCIL, load_artifact
-from ..cgra.isa import FXP_FRAC_BITS
+from ..cgra.energy import runtime_metrics
+from ..cgra.isa import FXP_FRAC_BITS, NOP
 from ..cgra.program import Program, Val
-from ..cgra.simulator import execute_asm
+from ..cgra.simulator import execute_asm, stacked_preset_state
 from ..device import resolve_device
+from ..kernels.ops import decode_fields, run_program
+from ..kernels.ref import InstrRow, PEState
+from .activity import ActivityAccumulator
 from .corpus import make_corpus
 
 M32 = (1 << 32) - 1
@@ -267,9 +274,9 @@ class FuzzReport:
     exec_time_s: float = 0.0
     oracle_time_s: float = 0.0
     mem_rate: float = 0.0            # memories verified per second
-    activity: Optional[Dict] = None  # not ported yet: always None
-    energy: Optional[Dict] = None    # not ported yet: always None
-    reproducer: Optional[str] = None
+    activity: Optional[Dict] = None
+    energy: Optional[Dict] = None    # static vs empirical dynamic energy
+    reproducer: Optional[str] = None  # path written by triage
     divergence: Optional[Dict] = None
 
     @property
@@ -284,12 +291,13 @@ _MISMATCH_SAMPLE_CAP = 8
 
 
 def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
-                 device="cuda") -> FuzzReport:
+                 device="cuda", collect_activity: bool = True) -> FuzzReport:
     """Differentially fuzz one artifact over a corpus.
 
     Chunks ``mems`` (N, M) into batches of ``batch`` memories, executes
     each chunk in one ``run_program``, runs the batched oracle on the same
-    chunk, and compares under the ``verify`` contract.
+    chunk, and compares under the ``verify`` contract.  Activity
+    statistics are harvested from each chunk's trace on its device.
     """
     dev = resolve_device(device)
     asm, program = artifact.asm, artifact.program
@@ -300,7 +308,9 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
     rep = FuzzReport(kernel=artifact.kernel, arch=artifact.arch,
                      status="ok", ii=asm.ii, memories=n,
                      batch=min(batch, n) if n else batch,
-                     backend="cuda" if dev.type == "cuda" else "ref")
+                     backend=_backend(dev))
+    acc = (ActivityAccumulator(asm, artifact.grid) if collect_activity
+           else None)
     t_exec = t_oracle = 0.0
     t_total0 = time.monotonic()
     for lo in range(0, n, batch):
@@ -321,6 +331,8 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
                 rep.mismatches.extend(mismatch_strings(
                     program, sim_vals, sim_mem, oracle_vals, oracle_mem,
                     int(i), label=lo + int(i))[:_MISMATCH_SAMPLE_CAP])
+        if acc is not None:
+            acc.update(outs)
     wall = time.monotonic() - t_total0
     rep.exec_time_s = round(t_exec, 4)
     rep.oracle_time_s = round(t_oracle, 4)
@@ -328,15 +340,150 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
     rep.mismatches = rep.mismatches[:_MISMATCH_SAMPLE_CAP]
     if rep.failing:
         rep.status = "mismatch"
+    if acc is not None:
+        rep.activity = acc.report().to_dict()
     return rep
 
 
+def _backend(dev: torch.device) -> str:
+    return "cuda" if dev.type == "cuda" else "ref"
+
+
 def fuzz_kernel(name: str, arch: str = "4x4", memories: int = 1024,
-                batch: int = 1024, seed: int = 0,
+                batch: int = 1024, seed: int = 0, shrink: bool = False,
+                failures_dir: str = "results/fuzz_failures",
                 strategies: Optional[Sequence[str]] = None,
                 device="cuda") -> FuzzReport:
     """Fuzz the shipped artifact of ``name`` on ``arch`` end to end:
-    corpus -> batched differential run."""
+    corpus -> batched differential run -> activity-based energy delta ->
+    (on mismatch, with ``shrink``) shrink + divergence replay +
+    reproducer JSON under ``failures_dir``."""
+    from .triage import triage_failure
+
     artifact = load_artifact(arch, name)
     mems = make_corpus(artifact, memories, seed=seed, strategies=strategies)
-    return fuzz_program(artifact, mems, batch=batch, device=device)
+    rep = fuzz_program(artifact, mems, batch=batch, device=device)
+    if rep.activity is not None:
+        rep.energy = _energy_delta(artifact, rep.activity)
+    if rep.failing and shrink:
+        triage_failure(artifact, mems, rep, device=device,
+                       out_dir=failures_dir)
+    return rep
+
+
+def _energy_delta(artifact: Artifact, activity: Dict) -> Dict:
+    """Static vs activity-based dynamic energy of one artifact.  The
+    mapping's utilization, which the artifact does not hold, enters
+    neither energy; 0.0 stands in for it."""
+    cols = artifact.grid.cols
+    static = runtime_metrics(artifact.asm, cols, 0.0)
+    empirical = runtime_metrics(artifact.asm, cols, 0.0, activity=activity)
+    delta = empirical.dynamic_nj - static.dynamic_nj
+    pct = (100.0 * delta / static.dynamic_nj) if static.dynamic_nj else 0.0
+    return {
+        "static_dynamic_nj": round(static.dynamic_nj, 4),
+        "empirical_dynamic_nj": round(empirical.dynamic_nj, 4),
+        "delta_nj": round(delta, 4),
+        "delta_pct": round(pct, 2),
+        "static_total_nj": round(static.energy_nj, 4),
+        "empirical_total_nj": round(empirical.energy_nj, 4),
+    }
+
+
+# ---------------------------------------------------------------------------
+# kernel stacking: K bitstreams of one grid, one kernel launch
+# ---------------------------------------------------------------------------
+
+#: the word of a NOP row cell: it leaves all state untouched
+_NOP_WORD = NOP.encode()
+
+
+def _pad_words(words: np.ndarray, total_rows: int) -> np.ndarray:
+    """NOP-pad a (T, P) bitstream to ``total_rows`` rows, as the JAX
+    package's ``_pad_fields`` pads the decoded fields (a NOP word decodes
+    to its op, dst, sa, sb and imm).  Padding at the end is inert."""
+    pad = total_rows - words.shape[0]
+    return np.concatenate(
+        [words, np.full((pad, words.shape[1]), _NOP_WORD, np.uint32)])
+
+
+def _pad_fields(fields: InstrRow, total_rows: int) -> InstrRow:
+    """Decoded-field counterpart of :func:`_pad_words`: (T, P) fields of
+    any program, NOP rows appended on their device."""
+    T, P = fields.op.shape
+    nop = decode_fields(np.full((total_rows - T, P), _NOP_WORD, np.uint32),
+                        fields.op.device)
+    return InstrRow(*(torch.cat([f, n]) for f, n in zip(fields, nop)))
+
+
+def run_stacked(artifacts: Sequence[Artifact], mems: np.ndarray,
+                device="cuda") -> Tuple[PEState, torch.Tensor]:
+    """Execute K bitstreams of one grid over (K, B, M) memories, or one
+    shared (B, M) corpus, in one ``run_program``: on the card one kernel
+    launch.  Returns (final state with a leading K axis, outs (K, T_max, B,
+    P)) on ``device``.  Shorter bitstreams are NOP-padded: rows past a
+    kernel's real schedule execute nothing, so its ``node_of_cell`` indices
+    stay valid."""
+    dev = resolve_device(device)
+    grid = artifacts[0].grid
+    for art in artifacts:
+        if art.grid != grid:
+            raise ValueError(f"cannot stack {art.kernel}: grid {art.grid} "
+                             f"!= {grid}")
+    mems = np.asarray(mems, np.int32)
+    if mems.ndim == 2:
+        mems = np.broadcast_to(mems[None], (len(artifacts),) + mems.shape)
+    K = mems.shape[0]
+    if K != len(artifacts):
+        raise ValueError(f"{len(artifacts)} bitstreams but {K} memory "
+                         f"groups")
+    t_max = max(art.asm.total_rows for art in artifacts)
+    words = np.stack([_pad_words(art.asm.words(), t_max)
+                      for art in artifacts])
+    state = stacked_preset_state([art.asm for art in artifacts],
+                                 grid.num_pes, mems, dev)
+    return run_program(decode_fields(words, dev), state,
+                       neighbor_table(grid), dev)
+
+
+def fuzz_stacked(artifacts: Sequence[Artifact], mems: np.ndarray,
+                 device="cuda") -> List[FuzzReport]:
+    """Differentially fuzz K artifacts of one grid in one stacked run.
+    ``mems`` is (B, M) (shared corpus) or (K, B, M).  Oracle comparison
+    and verdicts are those of per-kernel :func:`fuzz_program`; execution
+    time is split evenly over the K kernels."""
+    dev = resolve_device(device)
+    mems = np.asarray(mems, np.int32)
+    if mems.ndim == 2:
+        mems = np.broadcast_to(mems[None], (len(artifacts),) + mems.shape)
+    t0 = time.monotonic()
+    final, outs = run_stacked(artifacts, mems, device=dev)
+    sim_mems = final.mem.cpu().numpy()
+    exec_time = time.monotonic() - t0
+    reports: List[FuzzReport] = []
+    for k, art in enumerate(artifacts):
+        program, asm = art.program, art.asm
+        sim_vals = node_values_from_outs(asm, outs[k], program.trip)
+        t1 = time.monotonic()
+        oracle_vals, oracle_mem = batched_oracle(program, mems[k])
+        oracle_time = time.monotonic() - t1
+        bad = compare_batch(sim_vals, sim_mems[k], oracle_vals, oracle_mem)
+        rep = FuzzReport(
+            kernel=art.kernel, arch=art.arch, status="ok", ii=asm.ii,
+            memories=int(mems.shape[1]), batch=int(mems.shape[1]),
+            backend=_backend(dev),
+            exec_time_s=round(exec_time / len(artifacts), 4),
+            oracle_time_s=round(oracle_time, 4))
+        share = exec_time / len(artifacts) + oracle_time
+        rep.mem_rate = round(mems.shape[1] / share, 2) if share > 0 else 0.0
+        for i in np.nonzero(bad)[0]:
+            rep.failing.append(int(i))
+            if len(rep.mismatches) < _MISMATCH_SAMPLE_CAP:
+                rep.mismatches.extend(mismatch_strings(
+                    program, sim_vals, sim_mems[k], oracle_vals, oracle_mem,
+                    int(i))[:_MISMATCH_SAMPLE_CAP])
+        rep.mismatches = rep.mismatches[:_MISMATCH_SAMPLE_CAP]
+        if rep.failing:
+            rep.status = "mismatch"
+        reports.append(rep)
+    return reports

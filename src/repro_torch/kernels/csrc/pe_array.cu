@@ -10,7 +10,11 @@
 // run_cycles_kernel replaces the lax.scan of that kernel over the T rows of
 // a program (repro/kernels/ops.py:71, run_program): it computes what T
 // successive cycle_step_ref calls compute, the out trace (T, B, P) and the
-// final state, in one launch.
+// final state, in one launch.  It also replaces the jax.vmap of that scan
+// over K same-grid programs (repro/fuzz/engine.py:508, run_stacked): with
+// K > 1 the launch runs K programs of T rows each (shorter ones NOP-padded
+// by the caller) over K state stacks, the trace is (K, T, B, P), and
+// ref.py::run_stacked_ref is the plain version.
 //
 // cycle_step_kernel design: one thread per (batch row b, PE p); a block
 // holds kThreads / P whole batch rows.  Every thread reads only the
@@ -25,7 +29,11 @@
 //
 // run_cycles_kernel design: one thread per (b, p) again, and a block holds
 // R whole batch rows (R, the block size and the shared-memory bytes come
-// from pe_array.py::run_cycles_geometry).  The state stays on chip for all
+// from pe_array.py::run_cycles_geometry).  blockIdx.y is the program k of a
+// stack: a block offsets the instruction fields by k*T*P, the state and
+// memory by k*B*(...) and the trace by k*T*B*P, and reads the one neighbour
+// table every program of the stack shares (one grid).  K = 1 launches the
+// instance compiled without the axis.  The state stays on chip for all
 // T rows: each thread keeps its own regs, sf and zf in registers (only the
 // PE itself reads them), OUT lives in a shared double buffer out_s[2][R][P]
 // (neighbours read it), and the memory image in shared memory mem_s[R][M],
@@ -73,6 +81,11 @@
 //    trace stores coalesced (p is the fastest index), uses 64-thread blocks
 //    so that B=1024 fills every SM, and selects operands and ALU results
 //    without branches (below).
+//  * A stack of K programs moves K times those bytes with T the longest
+//    program's rows: 279.7 MB at K=15, T=112, B=2048, 83.5 us.  Its serial
+//    floor is one program's, T dependent cycles, since the K * B/R blocks
+//    run side by side; the NOP rows of the shorter programs still cost
+//    their cycles and their trace stores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -217,6 +230,12 @@ __device__ __forceinline__ Instr fetch(const int32_t* __restrict__ op,
           __ldg(imm + i)};
 }
 
+// kStacked adds the program axis: blockIdx.y = k offsets every array but
+// the neighbour table.  The unstacked instance is compiled without it, so
+// K = 1 runs, instruction for instruction, the code it ran before the axis
+// existed: compiled into the one kernel, the per-block offsets slowed the
+// latency-bound K = 1 launch on every cycle.
+template <bool kStacked>
 __global__ void __launch_bounds__(kThreads)
 run_cycles_kernel(const int32_t* __restrict__ op_f,
                   const int32_t* __restrict__ dst_f,
@@ -235,6 +254,15 @@ run_cycles_kernel(const int32_t* __restrict__ op_f,
                   int T, int B, int P, int M, int rows_per_block) {
   extern __shared__ int32_t smem[];
   const int R = rows_per_block;
+
+  if constexpr (kStacked) {  // program k of the stack: its arrays' slices
+    const int64_t k = blockIdx.y;
+    const int64_t fk = k * T * P, sk = k * B * P, mk = k * B * M;
+    op_f += fk; dst_f += fk; sa_f += fk; sb_f += fk; imm_f += fk;
+    regs += 4 * sk; out += sk; sf += sk; zf += sk; mem += mk;
+    regs_o += 4 * sk; out_o += sk; sf_o += sk; zf_o += sk; mem_o += mk;
+    if (outs != nullptr) outs += k * T * B * P;
+  }
   int32_t* mem_s = smem;               // [R][M]
   int32_t* out_s = smem + R * M;       // [2][R][P]
 
@@ -317,6 +345,7 @@ run_cycles_kernel(const int32_t* __restrict__ op_f,
 
 constexpr int kDefaultSharedBytes = 48 * 1024;
 constexpr int kMaxSharedBytes = 232448;  // 227 KB a block on sm_90
+constexpr int kMaxGridY = 65535;         // programs in one stacked launch
 
 }  // namespace
 
@@ -345,8 +374,10 @@ extern "C" int pe_cycle_step(const int32_t* op, const int32_t* dst,
   return static_cast<int>(cudaGetLastError());
 }
 
-// T cycles: instruction fields (T, P), outs (T, B, P) or null for no trace.
-// rows_per_block, threads, blocks and shared_bytes come from
+// T cycles of K programs: instruction fields (K, T, P), the state arrays
+// with a leading K axis (K, B, ...), outs (K, T, B, P) or null for no
+// trace; nbr (P, 4) is shared by the K programs.  rows_per_block, threads,
+// blocks (per program), shared_bytes and K come from
 // pe_array.py::run_cycles_geometry and are checked here against each other.
 extern "C" int pe_run_cycles(const int32_t* op, const int32_t* dst,
                              const int32_t* sa, const int32_t* sb,
@@ -357,21 +388,22 @@ extern "C" int pe_run_cycles(const int32_t* op, const int32_t* dst,
                              int32_t* out_o, int32_t* sf_o, int32_t* zf_o,
                              int32_t* mem_o, int32_t* outs, int T, int B,
                              int P, int M, int rows_per_block, int threads,
-                             int blocks, int shared_bytes,
+                             int blocks, int shared_bytes, int K,
                              cudaStream_t stream) {
   if (T < 0 || B <= 0 || P <= 0 || M <= 0 || rows_per_block <= 0 ||
       threads > kThreads || rows_per_block * P > threads ||
       static_cast<int64_t>(blocks) * rows_per_block < B ||
       shared_bytes != rows_per_block * (M + 2 * P) * 4 ||
-      shared_bytes > kMaxSharedBytes)
+      shared_bytes > kMaxSharedBytes || K <= 0 || K > kMaxGridY)
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel =
+      K == 1 ? run_cycles_kernel<false> : run_cycles_kernel<true>;
   if (shared_bytes > kDefaultSharedBytes) {
     const cudaError_t set = cudaFuncSetAttribute(
-        run_cycles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        shared_bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
     if (set != cudaSuccess) return static_cast<int>(set);
   }
-  run_cycles_kernel<<<blocks, threads, shared_bytes, stream>>>(
+  kernel<<<dim3(blocks, K), threads, shared_bytes, stream>>>(
       op, dst, sa, sb, imm, nbr, regs, out, sf, zf, mem, regs_o, out_o, sf_o,
       zf_o, mem_o, outs, T, B, P, M, rows_per_block);
   return static_cast<int>(cudaGetLastError());

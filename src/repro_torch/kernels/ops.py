@@ -1,9 +1,10 @@
 """Run a whole instruction grid on the PE-array state.
 
 Counterpart of ``src/repro/kernels/ops.py``: ``run_program`` takes the
-place of its ``lax.scan``.  On the card the whole program is one launch of
-the fused kernel (``pe_array.run_cycles``); on the CPU it is the loop of
-the plain cycle step.
+place of its ``lax.scan``.  On the card the whole program, or a stack of K
+programs on one grid, is one launch of the fused kernel
+(``pe_array.run_cycles``); on the CPU it is the loop of the plain cycle
+step.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from .ref import InstrRow, PEState
 
 
 def decode_fields(words: np.ndarray, device="cuda") -> InstrRow:
-    """(T, P) uint32 bitstream -> stacked int32 instruction fields."""
+    """(T, P) uint32 bitstream, or a (K, T, P) stack of them -> int32
+    instruction fields of the same shape."""
     w = np.asarray(words, np.uint32).astype(np.int64)
     op = (w >> 27) & 0x1F
     if op.size and op.max() >= len(OPS):
@@ -52,12 +54,13 @@ def run_program(fields: InstrRow, state: PEState,
                 neighbors: Sequence[Sequence[int]], device="cuda",
                 trace: bool = True
                 ) -> Tuple[PEState, Optional[torch.Tensor]]:
-    """Run every instruction row.  Returns (final state, out trace (T, B, P)
-    or None when ``trace`` is off), both on ``device``; ``state`` is left
-    unchanged."""
+    """Run every instruction row: fields (T, P) over a (B, ...) state, or a
+    stack of K programs, fields (K, T, P) over a (K, B, ...) state.  Returns
+    (final state, out trace (T, B, P) or (K, T, B, P), or None when
+    ``trace`` is off), both on ``device``; ``state`` is left unchanged."""
     dev = resolve_device(device)
     nbr = np.asarray(neighbors, np.int32)
-    P = state.out.shape[1]
+    P = state.out.shape[-1]
     if nbr.shape != (P, 4) or nbr.min() < 0 or nbr.max() >= P:
         raise ValueError(f"neighbors must be a (P, 4) table of PE ids < {P}")
     nbr_t = torch.as_tensor(nbr, device=dev)

@@ -155,3 +155,18 @@ def run_cycles_ref(fields: InstrRow, state: PEState, neighbors: torch.Tensor,
         if trace:
             outs[t] = state.out
     return state, outs
+
+
+def run_stacked_ref(fields: InstrRow, state: PEState, neighbors: torch.Tensor,
+                    trace: bool = True
+                    ) -> Tuple[PEState, Optional[torch.Tensor]]:
+    """K programs of one grid (``fields`` (K, T, P), ``state`` with a leading
+    K axis): :func:`run_cycles_ref` on each, stacked, as the JAX package's
+    ``jax.vmap`` of its scan runs them.  Returns (final state with the K
+    axis, out trace (K, T, B, P) or None)."""
+    runs = [run_cycles_ref(InstrRow(*(f[k] for f in fields)),
+                           PEState(*(t[k] for t in state)), neighbors, trace)
+            for k in range(fields.op.shape[0])]
+    final = PEState(*(torch.stack(ts) for ts in zip(*(f for f, _ in runs))))
+    outs = torch.stack([o for _, o in runs]) if trace else None
+    return final, outs

@@ -1,5 +1,6 @@
-"""The CUDA kernels (cycle step and whole-program run) against their plain
-PyTorch versions, on the card.  These need an NVIDIA GPU with nvcc (the
+"""The CUDA kernels (cycle step and whole-program run, single and stacked)
+against their plain PyTorch versions, and the fuzz path's stacked run,
+activity harvest and triage against the CPU path, on the card.  These need an NVIDIA GPU with nvcc (the
 kernels have no CPU mode):
 they carry the ``cuda`` marker and skip elsewhere.  They import nothing of
 JAX, so they run where only the port is installed::
@@ -19,7 +20,9 @@ from repro_torch.cgra.artifact import load_artifact  # noqa: E402
 from repro_torch.cgra.simulator import execute_asm  # noqa: E402
 from repro_torch.convert import fields_from_numpy, state_from_numpy  # noqa: E402
 from repro_torch.fuzz.corpus import make_corpus  # noqa: E402
-from repro_torch.fuzz.engine import fuzz_program  # noqa: E402
+from repro_torch.fuzz.activity import ActivityAccumulator  # noqa: E402
+from repro_torch.fuzz.engine import (fuzz_kernel, fuzz_program,  # noqa: E402
+                                     fuzz_stacked, run_stacked)
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.cgra.isa import OPCODE  # noqa: E402
 from repro_torch.kernels.pe_array import cycle_step, run_cycles  # noqa: E402
@@ -166,3 +169,91 @@ def test_fuzz_program_launches_run_cycles_once_per_chunk(cuda, arch, kernel):
     assert rep.status == "ok"
     assert run_cycles.launches - runs == 3
     assert cycle_step.launches == steps
+
+
+def _stack(K, T, side, batch, M, seed):
+    """K random programs of T rows on one grid, with K states."""
+    rng = np.random.RandomState(seed)
+    P = side * side
+    parts = [(random_fields(rng, T, P, M, full_encoding=True),
+              random_state(rng, batch, P, M)) for _ in range(K)]
+    f = {k: np.stack([p[0][k] for p in parts]) for k in FIELDS}
+    s = {k: np.stack([p[1][k] for p in parts]) for k in STATE}
+    return f, s, neighbor_table(Grid(side, side))
+
+
+@pytest.mark.parametrize("K,T,side,batch,M", [
+    (1, 16, 4, 37, 128), (2, 16, 3, 1000, 128), (5, 24, 4, 1, 64),
+    (5, 12, 4, 1000, 256), (3, 0, 3, 8, 64)])
+def test_stacked_launch_matches_plain_version_and_single_launches(
+        cuda, K, T, side, batch, M):
+    f, s, nbrs = _stack(K, T, side, batch, M, seed=K * 100 + T + batch)
+    nbr = torch.as_tensor(np.asarray(nbrs, np.int32), device=cuda)
+    fields = fields_from_numpy(*(f[k] for k in FIELDS), device=cuda)
+    state = state_from_numpy(*(s[k] for k in STATE), device=cuda)
+    before = run_cycles.launches
+    final, outs = run_cycles(fields, state, nbr)
+    torch.cuda.synchronize()
+    assert run_cycles.launches == before + (T > 0)
+    assert outs.shape == (K, T, batch, side * side)
+    plain, plain_outs = ref.run_stacked_ref(fields, state, nbr)
+    assert torch.equal(outs, plain_outs)
+    for name, a, b in zip(STATE, final, plain):
+        assert torch.equal(a, b), name
+    for k in range(K):
+        single, single_outs = run_cycles(ref.InstrRow(*(x[k] for x in fields)),
+                                         ref.PEState(*(t[k] for t in state)),
+                                         nbr)
+        assert torch.equal(outs[k], single_outs), f"trace of program {k}"
+        for name, a, b in zip(STATE, final, single):
+            assert torch.equal(a[k], b), f"{name} of program {k}"
+
+
+def test_stacked_launch_rejects_what_the_kernel_does_not_take(cuda):
+    f, s, nbrs = _stack(3, 4, 2, 4, 64, seed=1)
+    nbr = torch.as_tensor(np.asarray(nbrs, np.int32), device=cuda)
+    fields = fields_from_numpy(*(f[k] for k in FIELDS), device=cuda)
+    state = state_from_numpy(*(s[k] for k in STATE), device=cuda)
+    with pytest.raises(ValueError, match="3 programs but 2 states"):
+        run_cycles(fields, ref.PEState(*(t[:2] for t in state)), nbr)
+    with pytest.raises(ValueError, match="contiguous"):     # P != the grid's
+        run_cycles(ref.InstrRow(*(x[:, :, :3].contiguous() for x in fields)),
+                   state, nbr)
+    with pytest.raises(ValueError, match="contiguous"):
+        run_cycles(fields, state, nbr[:3])
+    with pytest.raises(ValueError, match="program"):
+        run_cycles(ref.InstrRow(*(x[None] for x in fields)), state, nbr)
+
+
+def test_fuzz_stacked_is_one_launch_with_the_single_kernel_verdicts(cuda):
+    arts = [load_artifact("4x4", k) for k in ("dotprod", "gsm", "stencil3")]
+    mems = np.stack([make_corpus(a, 300) for a in arts])
+    before = run_cycles.launches
+    reports = fuzz_stacked(arts, mems, device=cuda)
+    assert run_cycles.launches == before + 1
+    for art, m, rep in zip(arts, mems, reports):
+        single = fuzz_program(art, m, batch=300, device="cpu",
+                              collect_activity=False)
+        assert rep.backend == "cuda" and rep.status == "ok"
+        assert (rep.failing, rep.mismatches) == \
+            (single.failing, single.mismatches)
+    (g_final, g_outs), (c_final, c_outs) = (
+        run_stacked(arts, mems, device=d) for d in (cuda, "cpu"))
+    assert torch.equal(g_outs.cpu(), c_outs)
+    assert torch.equal(g_final.mem.cpu(), c_final.mem)
+
+
+@pytest.mark.parametrize("arch,kernel", [("4x4", "gsm"), ("4x4", "fir4"),
+                                         ("3x3", "sqrt")])
+def test_activity_on_the_card_equals_the_cpu_path(cuda, arch, kernel):
+    art = load_artifact(arch, kernel)
+    mems = make_corpus(art, 600)
+    reports = [fuzz_kernel(kernel, arch, memories=600, batch=256, device=d)
+               for d in (cuda, "cpu")]
+    assert reports[0].activity == reports[1].activity is not None
+    assert reports[0].energy == reports[1].energy is not None
+    acc = ActivityAccumulator(art.asm, art.grid)
+    outs = execute_asm(art.asm, art.grid, mems, batch=600, device=cuda)[1]
+    acc.update(outs)
+    assert acc._bits.device.type == "cuda"      # the sums stay on the card
+    assert acc.report().to_dict()["memories"] == 600

@@ -1,6 +1,7 @@
 """repro_torch.fuzz against repro.fuzz: corpora byte for byte, the batched
-oracle, fuzz verdicts and mismatch strings (also under an injected fault),
-and the CLI digest.  Everything runs on the CPU with exact equality.
+oracle, fuzz verdicts, mismatch strings and switching activity (also under
+an injected fault), and the CLI digest with activity and energy, also with
+``--shrink``.  Everything runs on the CPU with exact equality.
 """
 import dataclasses
 import json
@@ -20,10 +21,10 @@ from repro.cgra.registry import kernel_program  # noqa: E402
 from repro.fuzz import cli as jax_cli  # noqa: E402
 from repro.fuzz import corpus as jax_corpus  # noqa: E402
 from repro.fuzz import engine as jax_engine  # noqa: E402
-from repro.fuzz.triage import inject_fault  # noqa: E402
+from repro.fuzz.triage import inject_fault, triage_failure  # noqa: E402
 from repro_torch.cgra.artifact import load_artifact  # noqa: E402
 from repro_torch.convert import artifact_from_parts  # noqa: E402
-from repro_torch.fuzz import corpus, engine  # noqa: E402
+from repro_torch.fuzz import cli, corpus, engine  # noqa: E402
 from torch_parity import SHIPPED, jax_asm, jax_grid  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -73,12 +74,11 @@ def _jax_fuzz(art, mems, asm=None):
     mapping = SimpleNamespace(grid=jax_grid(art))   # only the grid is read
     return jax_engine.fuzz_program(
         kernel_program(art.kernel), mapping, mems, batch=32,
-        collect_activity=False, asm=asm or jax_asm(art.asm),
-        kernel=art.kernel, arch=art.arch)
+        asm=asm or jax_asm(art.asm), kernel=art.kernel, arch=art.arch)
 
 
 def _verdict(rep):
-    return rep.status, rep.failing, rep.mismatches
+    return rep.status, rep.failing, rep.mismatches, rep.activity
 
 
 @pytest.mark.parametrize("arch,kernel", VERDICT_KERNELS)
@@ -86,7 +86,7 @@ def test_fuzz_program_verdicts_match_jax(arch, kernel):
     art = load_artifact(arch, kernel)
     mems = corpus.make_corpus(art, 64)
     rep = engine.fuzz_program(art, mems, batch=32, device="cpu")
-    assert rep.backend == "ref" and rep.activity is None
+    assert rep.backend == "ref" and rep.activity is not None
     assert _verdict(rep) == _verdict(_jax_fuzz(art, mems))
     assert rep.status == "ok"
 
@@ -105,10 +105,10 @@ def test_injected_fault_reports_match_jax():
     assert _verdict(rep) == _verdict(want)
 
 
-#: digest fields that differ by design: the backend name, wall-clock
-#: timings, and the activity/energy harvest the port has not ported yet
+#: digest fields that differ by design: the backend name and wall-clock
+#: timings
 _VARIES = ("backend", "map_time_s", "exec_time_s", "oracle_time_s",
-           "mem_rate", "activity", "energy")
+           "mem_rate")
 
 
 def _comparable(doc):
@@ -130,3 +130,33 @@ def test_cli_digest_matches_jax(capsys):
     want = json.loads(capsys.readouterr().out)
     assert port["backend"] == "ref"
     assert _comparable(port) == _comparable(want)
+
+
+def test_cli_shrink_writes_the_jax_reproducer(tmp_path, monkeypatch, capsys):
+    art = load_artifact("4x4", "gsm")
+    mutated, _, _ = inject_fault(jax_asm(art.asm))
+    faulty = dataclasses.replace(art, asm=artifact_from_parts(
+        mutated.name, mutated.ii, mutated.trip, mutated.words(),
+        mutated.presets_out, mutated.presets_reg, mutated.node_of_cell))
+    monkeypatch.setattr(engine, "load_artifact", lambda arch, name: faulty)
+    digest = tmp_path / "digest.json"
+    rc = cli.main(["--device", "cpu", "--kernels", "gsm", "--memories",
+                   "64", "--batch", "32", "--shrink", "--failures-dir",
+                   str(tmp_path / "port"), "--out", str(digest)])
+    printed = capsys.readouterr().out
+    assert rc == 1
+    rep = json.loads(digest.read_text())["results"][0]
+    assert rep["status"] == "mismatch" and rep["energy"] is not None
+    assert rep["reproducer"].startswith(str(tmp_path / "port"))
+    assert f"reproducer: {rep['reproducer']}" in printed
+    assert "first divergence: cycle" in printed
+    assert "dynamic energy: static" in printed
+
+    mems = corpus.make_corpus(art, 64)
+    want = _jax_fuzz(art, mems, asm=mutated)
+    triage_failure(kernel_program("gsm"), SimpleNamespace(grid=jax_grid(art)),
+                   mems, want, out_dir=str(tmp_path / "jax"), asm=mutated)
+    assert (rep["failing"], rep["activity"], rep["divergence"]) == \
+        (want.failing, want.activity, want.divergence)
+    port = json.loads(Path(rep["reproducer"]).read_text())
+    assert port == json.loads(Path(want.reproducer).read_text())
