@@ -24,10 +24,18 @@ per line:
       plain version and against K single whole-program launches, trace and
       final state bit-equal: random programs of different lengths,
       NOP-padded, K in {1, 2, 5}, P in {9, 16}, B in {1, 37, 1000};
-4. the main path: ``fuzz_kernel`` on all 16 artifacts, 2048 memories in
-   batches of 1024, every verdict ``ok`` and equal to the status of the
-   same kernel in ``results/BENCH_fuzz.json``; the whole-program kernel
-   must launch once per batch chunk and the cycle step never;
+4. the map phase: the port's own ``Toolchain`` maps and assembles all 16
+   shipped kernels (fir4 included) on the host with the CDCL backend that
+   made them (``MAP_CONFIG``), each fresh artifact equal to the committed
+   JSON key for key, and ``fuzz_kernel`` reports sha (``ii_max`` 4) and
+   sha2 at 2x2 ``unmapped``, the ``unsat-capped`` rows of
+   ``results/BENCH_fuzz.json``; map seconds per kernel and their sum.
+   Then the main path: ``fuzz_kernel`` on the 16 shipped kernels, each
+   mapped live under ``MAP_CONFIG`` (its time to a verdict includes the
+   mapping), 2048 memories in batches of 1024, every verdict ``ok`` and
+   equal to the status of the same kernel in ``results/BENCH_fuzz.json``;
+   the whole-program kernel must launch once per batch chunk and the
+   cycle step never;
    b. the stacked main path: ``fuzz_stacked`` on the 15 4x4 artifacts x
       2048 seed-0 memories, one launch, every verdict ``ok`` and its
       failing memories equal to phase 4's and to ``stacked_failing`` in
@@ -73,6 +81,15 @@ SWEEP_STEPS = 64
 MAIN_MEMORIES, MAIN_BATCH = 2048, 1024
 STACK_ARCH = "4x4"                 # the stacked rung of BENCH_fuzz.json
 ACTIVITY_KERNELS = (("4x4", "gsm"), ("4x4", "fir4"), ("3x3", "sqrt"))
+#: the mapper budget of ``fuzz_kernel`` and the artifact exporter, with
+#: the backend that made the shipped artifacts and BENCH_fuzz.json: where
+#: z3 is installed, "auto" picks it, and z3 maps differ from those and
+#: from one call to the next in one process
+MAP_CONFIG = dict(backend="cdcl", per_ii_timeout_s=60.0,
+                  total_timeout_s=120.0, ii_max=32)
+#: the ``unsat-capped`` rows of BENCH_fuzz.json, with their ``ii_max``
+#: (``benchmarks/fuzz_throughput.py:KERNEL_CONFIG``)
+UNMAPPED = (("sha", 4), ("sha2", 32))
 FAILURES_DIR = ROOT / "build" / "chip_smoke_failures"
 STREAM_MEMORIES, STREAM_BATCH = 65536, 16384
 TIMED_BATCHES = (1024, 16384)
@@ -98,6 +115,13 @@ def program_bytes(T: int, B: int, P: int, M: int, trace: bool = True) -> int:
     once, the (T, B, P) trace written once, the five (T, P) instruction
     fields read once."""
     return state_bytes(B, P, M) + 4 * T * B * P * trace + 20 * T * P
+
+
+def map_config(**overrides):
+    """``MAP_CONFIG`` as a ``MapperConfig``, with ``overrides``."""
+    from repro_torch.core.mapper import MapperConfig
+
+    return MapperConfig(**{**MAP_CONFIG, **overrides})
 
 
 def max_diff(a, b) -> int:
@@ -348,9 +372,65 @@ def stacked_vs_plain(device) -> int:
     return worst
 
 
+def map_phase(artifacts, device) -> None:
+    """Phase 4, first part: the port maps and assembles every shipped
+    kernel itself, and the fresh artifact equals the committed JSON key
+    for key; sha and sha2 at 2x2 come out ``unmapped``, as
+    ``results/BENCH_fuzz.json`` has them.  Mapping runs on the host."""
+    from repro_torch.cgra.artifact import ARTIFACT_ROOT, Artifact
+    from repro_torch.core.backends import resolve_backend
+    from repro_torch.fuzz.engine import fuzz_kernel
+    from repro_torch.toolchain import Toolchain
+
+    bench = {row["kernel"]: row for row in json.loads(
+        (ROOT / "results" / "BENCH_fuzz.json").read_text())["rows"]}
+    t0 = time.monotonic()
+    seconds = {}
+    for art in artifacts:
+        tc = Toolchain(art.arch, map_config())
+        prog = tc.program(art.kernel)
+        t1 = time.monotonic()
+        res = tc.map(prog)
+        seconds[art.kernel] = round(time.monotonic() - t1, 3)
+        check(res.status == "mapped", f"{art.kernel}: {res.status}")
+        fresh = Artifact.from_mapping(prog.builder, res.mapping,
+                                      arch=art.arch).to_dict()
+        shipped = json.loads(
+            (ARTIFACT_ROOT / art.arch / f"{art.kernel}.json").read_text())
+        differ = sorted(k for k in shipped.keys() | fresh.keys()
+                        if shipped.get(k) != fresh.get(k))
+        check(not differ, f"{art.kernel}: fresh artifact differs from the "
+                          f"shipped one in {differ}")
+        emit({"phase": "map", "kernel": art.kernel, "arch": art.arch,
+              "status": res.status, "ii": res.ii, "mii": res.mii,
+              "cegar_rounds": res.cegar_rounds,
+              "map_seconds": seconds[art.kernel],
+              "equal_to_shipped": True})
+    unmapped = {}
+    for name, ii_max in UNMAPPED:
+        row = bench[name]
+        rep = fuzz_kernel(name, row["arch"], memories=MAIN_MEMORIES,
+                          batch=MAIN_BATCH, config=map_config(ii_max=ii_max),
+                          device=device)
+        check(rep.status == "unmapped" and row["status"] == "unsat-capped",
+              f"{name}@{row['arch']}: {rep.status}, BENCH_fuzz.json "
+              f"{row['status']}")
+        unmapped[name] = rep.map_time_s
+        emit({"phase": "map", "kernel": name, "arch": rep.arch,
+              "status": rep.status, "ii_max": ii_max,
+              "map_seconds": rep.map_time_s})
+    emit({"phase": "map_summary", "kernels": len(seconds),
+          "equal_to_shipped": len(seconds), "unmapped": sorted(unmapped),
+          "map_seconds_total": round(sum(seconds.values()), 3),
+          "backend": MAP_CONFIG["backend"],
+          "auto_backend_here": resolve_backend("auto"),
+          "unmapped_map_seconds": unmapped,
+          "seconds": round(time.monotonic() - t0, 3)})
+
+
 def main_path(artifacts, device):
-    """Phase 4: the fuzz path on every artifact.  Returns the launches of
-    (cycle_step, run_cycles) over the run."""
+    """Phase 4: the fuzz path on every shipped kernel, each mapped live.
+    Returns the launches of (cycle_step, run_cycles) over the run."""
     from repro_torch.fuzz.engine import fuzz_kernel
     from repro_torch.kernels.pe_array import cycle_step, run_cycles
 
@@ -361,7 +441,8 @@ def main_path(artifacts, device):
     t0 = time.monotonic()
     cycle_step.launches = run_cycles.launches = 0
     reports = [fuzz_kernel(a.kernel, a.arch, memories=MAIN_MEMORIES,
-                           batch=MAIN_BATCH, seed=0, device=device)
+                           batch=MAIN_BATCH, seed=0, config=map_config(),
+                           device=device)
                for a in artifacts]
     steps, runs = cycle_step.launches, run_cycles.launches
     wall = time.monotonic() - t0
@@ -369,7 +450,8 @@ def main_path(artifacts, device):
         emit({"phase": "fuzz", "kernel": rep.kernel, "arch": rep.arch,
               "status": rep.status, "ii": rep.ii, "memories": rep.memories,
               "batch": rep.batch, "backend": rep.backend,
-              "mem_rate": rep.mem_rate, "exec_time_s": rep.exec_time_s,
+              "mem_rate": rep.mem_rate, "map_time_s": rep.map_time_s,
+              "exec_time_s": rep.exec_time_s,
               "oracle_time_s": rep.oracle_time_s})
         check(rep.status == "ok" and rep.failing == [],
               f"{rep.kernel}: {rep.status} {rep.mismatches[:2]}")
@@ -383,7 +465,9 @@ def main_path(artifacts, device):
     emit({"phase": "main_path", "kernels": len(reports),
           "memories_each": MAIN_MEMORIES, "batch": MAIN_BATCH,
           "run_cycles_launches": runs, "cycle_step_launches": steps,
-          "rows_run": rows_run, "seconds": round(wall, 3)})
+          "rows_run": rows_run,
+          "map_seconds": round(sum(r.map_time_s for r in reports), 3),
+          "seconds": round(wall, 3)})
     return steps, runs, reports
 
 
@@ -445,7 +529,8 @@ def activity_phase(reports) -> None:
     t0 = time.monotonic()
     for arch, kernel in ACTIVITY_KERNELS:
         cpu = fuzz_kernel(kernel, arch, memories=MAIN_MEMORIES,
-                          batch=MAIN_BATCH, seed=0, device="cpu")
+                          batch=MAIN_BATCH, seed=0, config=map_config(),
+                          device="cpu")
         card = on_card[(arch, kernel)]
         check(card.activity == cpu.activity,
               f"{kernel}: activity on the card differs from the CPU path's")
@@ -536,7 +621,8 @@ def stream_phase(device) -> None:
 
     run_cycles.launches = 0
     rep = fuzz_kernel("gsm", "4x4", memories=STREAM_MEMORIES,
-                      batch=STREAM_BATCH, seed=1, device=device)
+                      batch=STREAM_BATCH, seed=1, config=map_config(),
+                      device=device)
     check(rep.status == "ok" and rep.failing == [],
           f"gsm stream: {rep.status} {rep.mismatches[:2]}")
     chunks = -(-STREAM_MEMORIES // STREAM_BATCH)
@@ -865,6 +951,7 @@ def main() -> int:
     fused_err = max(artifacts_vs_plain(device, artifacts),
                     run_cycles_vs_plain(device))
     stacked_err = stacked_vs_plain(device)
+    map_phase(artifacts, device)
     steps, runs, reports = main_path(artifacts, device)
     stacked_runs = stacked_main_path(artifacts, reports, device)
     activity_phase(reports)

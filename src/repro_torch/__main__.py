@@ -1,12 +1,16 @@
-"""``python -m repro_torch fuzz ...``: the port's command line."""
+"""``python -m repro_torch {map,fuzz} ...``: the port's command line."""
 import sys
 
-from .fuzz.cli import main
+_USAGE = "usage: python -m repro_torch {map,fuzz} [--help]"
 
 
 def _main(argv) -> int:
-    if not argv or argv[0] != "fuzz":
-        print("usage: python -m repro_torch fuzz [--help]", file=sys.stderr)
+    if argv and argv[0] == "map":
+        from .toolchain.cli import main
+    elif argv and argv[0] == "fuzz":
+        from .fuzz.cli import main
+    else:
+        print(_USAGE, file=sys.stderr)
         return 2
     return main(argv[1:])
 

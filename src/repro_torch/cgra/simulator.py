@@ -1,23 +1,55 @@
-"""Cycle-accurate execution of mapped-kernel artifacts and end-to-end
-verification.
+"""Cycle-accurate execution of mapped kernels and end-to-end verification.
 
-Counterpart of the execution half of ``src/repro/cgra/simulator.py``:
-artifact -> decoded bitstream -> preset state -> ``run_program`` on the
-PE array -> per-node values, checked by ``verify`` against the serial
-Python oracle with the same mismatch strings.
+Counterpart of ``src/repro/cgra/simulator.py``: program -> SAT mapping
+(:func:`map_for_execution`) -> bitstream -> ``run_program`` on the PE
+array -> per-node values, checked by ``verify`` against the serial Python
+oracle with the same mismatch strings.  :func:`simulate` and
+:func:`verify` take either an :class:`~repro_torch.cgra.artifact.Artifact`
+or, as in the JAX package, ``(program, mapping, mem)``; a mapping is
+assembled into its artifact first, so both run the same path.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..kernels.ops import decode_fields, init_state, run_program
 from ..kernels.ref import PEState
-from .arch import Grid, neighbor_table
-from .artifact import Artifact, AssembledCIL
+from .arch import PEGrid, neighbor_table
+from .artifact import Artifact
+from .bitstream import AssembledCIL
+from .programs import LoopBuilder
+
+
+def map_for_execution(program: LoopBuilder, grid: PEGrid, config=None):
+    """SAT-map with the bitstream assembler as a CEGAR oracle: prologue
+    clobbers (codegen-level counterexamples the paper's encoding does not
+    model) are fed back as blocking clauses.
+
+    Compatibility shim, as in the JAX package — new code should use the
+    session API instead::
+
+        Toolchain(grid, config).map(program)   # repro_torch.toolchain
+    """
+    from ..core.mapper import map_dfg
+    from ..toolchain.oracles import assembler_oracle
+
+    return map_dfg(program.build_dfg(), grid, config,
+                   assemble_check=assembler_oracle(program))
+
+
+def _artifact(source: Union[Artifact, LoopBuilder], args: tuple
+              ) -> Tuple[Artifact, np.ndarray]:
+    """``(artifact, mem)`` from ``(artifact, mem)`` or ``(program,
+    mapping, mem)`` positional arguments."""
+    if isinstance(source, Artifact):
+        (mem,) = args
+        return source, mem
+    mapping, mem = args
+    return Artifact.from_mapping(source, mapping), mem
 
 
 @dataclass
@@ -62,7 +94,7 @@ def stacked_preset_state(asms: Sequence[AssembledCIL], num_pes: int,
     return PEState(*(torch.stack(ts) for ts in zip(*states)))
 
 
-def execute_asm(asm: AssembledCIL, grid: Grid, mem: np.ndarray,
+def execute_asm(asm: AssembledCIL, grid: PEGrid, mem: np.ndarray,
                 batch: int = 1, device="cuda"
                 ) -> Tuple[PEState, torch.Tensor, torch.Tensor]:
     """Run an assembled CIL over ``batch`` memories.  Returns
@@ -75,8 +107,10 @@ def execute_asm(asm: AssembledCIL, grid: Grid, mem: np.ndarray,
     return final, outs, state.out
 
 
-def simulate(artifact: Artifact, mem: np.ndarray, batch: int = 1,
-             device="cuda") -> SimResult:
+def simulate(source, *args, batch: int = 1, device="cuda") -> SimResult:
+    """``simulate(artifact, mem)`` or ``simulate(program, mapping, mem)``
+    over ``batch`` copies of ``mem``."""
+    artifact, mem = _artifact(source, args)
     asm = artifact.asm
     final, outs, _ = execute_asm(asm, artifact.grid, mem, batch=batch,
                                  device=device)
@@ -90,8 +124,10 @@ def simulate(artifact: Artifact, mem: np.ndarray, batch: int = 1,
                      total_rows=asm.total_rows)
 
 
-def verify(artifact: Artifact, mem: np.ndarray, device="cuda") -> List[str]:
-    """Returns a list of mismatch strings (empty == end-to-end correct)."""
+def verify(source, *args, device="cuda") -> List[str]:
+    """``verify(artifact, mem)`` or ``verify(program, mapping, mem)``:
+    a list of mismatch strings (empty == end-to-end correct)."""
+    artifact, mem = _artifact(source, args)
     program = artifact.program
     errors: List[str] = []
     mem = np.asarray(mem, np.int32)

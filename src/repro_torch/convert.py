@@ -1,17 +1,24 @@
-"""Carry the JAX package's execution state across to the port.
+"""Carry the JAX package's state across to the port.
 
-The JAX package's ``InstrRow``/``PEState`` and ``AssembledCIL`` reach the
-port as numpy arrays and plain dicts and lists (the port imports nothing
-of ``repro``), so both packages can be fed identical inputs.
+The JAX package's ``InstrRow``/``PEState``, ``AssembledCIL`` and
+``Mapping`` reach the port as numpy arrays and plain dicts, lists and
+tuples (the port imports nothing of ``repro``), so both packages can be
+fed identical inputs: the port's assembler, for one, can be held against
+the JAX assembler on the same mapping without going through either
+solver.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Iterable, Tuple
 
 import numpy as np
 import torch
 
-from .cgra.artifact import AssembledCIL
+from .cgra.arch import PEGrid
+from .cgra.bitstream import AssembledCIL
+from .core.dfg import DFG
+from .core.mapping import Mapping, Placement
+from .core.schedule import Slot
 from .device import resolve_device
 from .kernels.ref import InstrRow, PEState
 
@@ -49,3 +56,20 @@ def artifact_from_parts(
                      for (pe, r), v in presets_reg.items()},
         node_of_cell={(int(t), int(pe)): (int(n), int(j))
                       for (t, pe), (n, j) in node_of_cell.items()})
+
+
+def mapping_from_parts(
+    dfg: DFG, grid: PEGrid, ii: int, num_folds: int,
+    placements: Iterable[Tuple[int, int, Tuple[int, int]]],
+    handoffs: Dict[Tuple[int, int, int], str],
+) -> Mapping:
+    """The port's ``Mapping`` of ``dfg`` on ``grid`` from a JAX mapping's
+    parts: ``(node, pe, (time, fold))`` placements (its ``Slot`` as
+    ``(c, it)``) and the ``(src, dst, distance) -> kind`` hand-offs."""
+    return Mapping(
+        dfg=dfg, grid=grid, ii=int(ii), num_folds=int(num_folds),
+        placements={int(n): Placement(node=int(n), pe=int(pe),
+                                      slot=Slot(c=int(c), it=int(it)))
+                    for n, pe, (c, it) in placements},
+        handoffs={(int(s), int(d), int(k)): str(kind)
+                  for (s, d, k), kind in handoffs.items()})

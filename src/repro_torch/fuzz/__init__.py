@@ -1,4 +1,4 @@
-"""Batched differential fuzzing of artifacts: corpora, oracle, engine,
+"""Batched differential fuzzing of mapped kernels: corpora, oracle, engine,
 stacked runs, triage, switching activity, CLI.
 
 * :mod:`repro_torch.fuzz.corpus`   deterministic seeded memory generators

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..cgra.arch import Grid, neighbor_table
-from ..cgra.artifact import AssembledCIL
+from ..cgra.bitstream import AssembledCIL
 from ..cgra.isa import OPCODE, OPS, SRC_IMM, SRC_OWN
 from ..cgra.simulator import preset_arrays
 

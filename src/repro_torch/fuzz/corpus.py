@@ -1,9 +1,10 @@
 """Deterministic seeded memory corpora, one generator family per kernel.
 
-A copy of ``src/repro/fuzz/corpus.py`` that takes the input regions and
-the FXPMUL clip flag from the artifact instead of the kernel registry, so
-its images are byte-identical to the JAX package's.  Memory ``i`` of a
-corpus uses ``STRATEGIES[i % 5]`` with an RNG derived only from
+A copy of ``src/repro/fuzz/corpus.py``.  A kernel is named either by
+its registry name, whose input regions and FXPMUL clip flag come from the
+registry as in the JAX package, or by an artifact, which stores both; the
+two give byte-identical images.  Memory ``i`` of a corpus uses
+``STRATEGIES[i % 5]`` with an RNG derived only from
 ``(kernel, base_seed, i)`` via crc32:
 
 * ``uniform``  every region cell uniform in its declared ``[lo, hi)``
@@ -17,9 +18,10 @@ range, where the executors' int32 product agrees with the exact oracle.
 """
 from __future__ import annotations
 
+import functools
 import zlib
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -45,6 +47,52 @@ class Region:
     hi: int = 1 << 30
 
 
+#: input layouts of the hand-written Table-6 benchmarks, mirroring
+#: ``repro_torch.cgra.programs.benchmark_mem`` (which only exposes a callable)
+_HANDWRITTEN_REGIONS: Dict[str, Tuple[Region, ...]] = {
+    "stringsearch": (Region(0, 16, 0, 8), Region(32, 16, 0, 8),
+                     Region(48, 16, 0, 8)),
+    "gsm": (Region(0, 16, -(2 ** 14), 2 ** 14),
+            Region(32, 16, -(2 ** 14), 2 ** 14)),
+}
+_DEFAULT_REGIONS: Tuple[Region, ...] = (Region(0, 32, 0, 2 ** 30),)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_regions(name: str) -> Tuple[Region, ...]:
+    """The randomized input regions of one registry kernel."""
+    from ..cgra.registry import get_kernel
+
+    spec = get_kernel(name)
+    if spec.origin == "traced":
+        from ..cgra.traced import traced_regions
+
+        return tuple(Region(*r) for r in traced_regions(name))
+    return _HANDWRITTEN_REGIONS.get(name, _DEFAULT_REGIONS)
+
+
+@functools.lru_cache(maxsize=None)
+def uses_wide_product(name: str) -> bool:
+    """Whether the kernel's program contains FXPMUL (the one op whose
+    executors' int32 product diverges from the exact oracle outside the
+    declared input range)."""
+    from ..cgra.registry import kernel_program
+
+    program = kernel_program(name)
+    return any(n.op == "FXPMUL" for n in program.nodes)
+
+
+Kernel = Union[str, Artifact]
+
+
+def _layout(kernel: Kernel) -> Tuple[str, Tuple[Region, ...], bool]:
+    """(name, input regions, clip flag) of a registry name or artifact."""
+    if isinstance(kernel, Artifact):
+        return (kernel.kernel, tuple(Region(*r) for r in kernel.regions),
+                kernel.wide_product)
+    return kernel, kernel_regions(kernel), uses_wide_product(kernel)
+
+
 def _rng(kernel: str, seed: int, index: int) -> np.random.RandomState:
     """Process-stable per-memory RNG (crc32 mix, never ``hash``)."""
     tag = zlib.crc32(f"{kernel}/{seed}/{index}".encode())
@@ -63,7 +111,7 @@ def _fill_regions(mem: np.ndarray, regions: Sequence[Region], draw) -> None:
         mem[r.base:r.base + r.length] = draw(r)
 
 
-def generate_memory(artifact: Artifact, index: int, seed: int = 0,
+def generate_memory(kernel: Kernel, index: int, seed: int = 0,
                     strategy: Optional[str] = None,
                     mem_size: int = MEM_SIZE) -> np.ndarray:
     """One deterministic (mem_size,) int32 image for corpus slot ``index``."""
@@ -71,9 +119,8 @@ def generate_memory(artifact: Artifact, index: int, seed: int = 0,
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown corpus strategy {strategy!r}; "
                          f"expected one of {STRATEGIES}")
-    regions = [Region(*r) for r in artifact.regions]
-    clip = artifact.wide_product
-    rng = _rng(artifact.kernel, seed, index)
+    name, regions, clip = _layout(kernel)
+    rng = _rng(name, seed, index)
     mem = np.zeros(mem_size, np.int64)
 
     if strategy == "uniform":
@@ -112,7 +159,7 @@ def generate_memory(artifact: Artifact, index: int, seed: int = 0,
     return mem.astype(np.int32)
 
 
-def make_corpus(artifact: Artifact, n: int, seed: int = 0,
+def make_corpus(kernel: Kernel, n: int, seed: int = 0,
                 strategies: Optional[Sequence[str]] = None,
                 mem_size: int = MEM_SIZE) -> np.ndarray:
     """(n, mem_size) int32 corpus; row ``i`` uses strategy ``i % len``."""
@@ -122,7 +169,7 @@ def make_corpus(artifact: Artifact, n: int, seed: int = 0,
             raise ValueError(f"unknown corpus strategy {s!r}; "
                              f"expected one of {STRATEGIES}")
     rows: List[np.ndarray] = [
-        generate_memory(artifact, i, seed=seed,
+        generate_memory(kernel, i, seed=seed,
                         strategy=chosen[i % len(chosen)],
                         mem_size=mem_size)
         for i in range(n)]

@@ -11,8 +11,11 @@ Counterpart of ``src/repro/fuzz/engine.py``:
   and the final memory image against the batched oracle, reports
   per-memory verdicts with the comparison contract of ``verify``, and
   harvests switching activity from each chunk's trace on its device.
-* :func:`fuzz_kernel` loads a shipped artifact instead of mapping, adds
-  the activity-based energy delta and, on a mismatch, optionally triages.
+* :func:`fuzz_kernel` maps a registry kernel through the port's
+  ``Toolchain`` as the JAX package does (``map_time_s``; ``unmapped``,
+  ``timeout`` and ``error`` when no mapping comes back), fuzzes the
+  fresh artifact, adds the activity-based energy delta and, on a
+  mismatch, optionally triages.
 * :func:`run_stacked` / :func:`fuzz_stacked` stack NOP-padded bitstreams
   of one grid on a leading kernel axis, so one kernel launch executes K
   kernels x B memories.
@@ -28,10 +31,11 @@ import numpy as np
 import torch
 
 from ..cgra.arch import neighbor_table
-from ..cgra.artifact import Artifact, AssembledCIL, load_artifact
+from ..cgra.artifact import Artifact
+from ..cgra.bitstream import AssembledCIL
 from ..cgra.energy import runtime_metrics
 from ..cgra.isa import FXP_FRAC_BITS, NOP
-from ..cgra.program import Program, Val
+from ..cgra.programs import LoopBuilder, Val
 from ..cgra.simulator import execute_asm, stacked_preset_state
 from ..device import resolve_device
 from ..kernels.ops import decode_fields, run_program
@@ -100,7 +104,7 @@ def _scatter(mem: np.ndarray, addr: np.ndarray, val: np.ndarray) -> None:
 
 
 def _batched_interpret(
-    program: Program, mems: np.ndarray, record_iterations: bool = False
+    program: LoopBuilder, mems: np.ndarray, record_iterations: bool = False
 ) -> Tuple[Dict[int, np.ndarray], np.ndarray, List[Dict[int, np.ndarray]]]:
     """The serial oracle over a (B, M) batch.
 
@@ -113,6 +117,8 @@ def _batched_interpret(
     if mems.ndim == 1:
         mems = mems[None, :]
     B, M = mems.shape
+    dfg = program.build_dfg()
+    order = dfg.topo_order()
     carry_vals: Dict[int, np.ndarray] = {
         c.update: np.asarray(np.int64(c.init)) for c in program.carries}
     history: List[Dict[int, np.ndarray]] = []
@@ -120,10 +126,10 @@ def _batched_interpret(
     for _ in range(program.trip):
         vals = {}
         flags: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
-        for nid in program.order:
+        for nid in order:
             a, b = program.node_srcs[nid]
             imm = program.node_imm[nid]
-            op = program.ops[nid]
+            op = dfg.nodes[nid].op
 
             def fetch(operand, use_imm):
                 if operand is None:
@@ -165,7 +171,7 @@ def _batched_interpret(
 
 
 def batched_oracle(
-    program: Program, mems: np.ndarray
+    program: LoopBuilder, mems: np.ndarray
 ) -> Tuple[Dict[int, np.ndarray], np.ndarray]:
     """(last-iteration node values {nid: (B,)}, final memories (B, M))."""
     vals, final_mems, _ = _batched_interpret(program, mems)
@@ -173,7 +179,7 @@ def batched_oracle(
 
 
 def batched_oracle_iterations(
-    program: Program, mems: np.ndarray
+    program: LoopBuilder, mems: np.ndarray
 ) -> List[Dict[int, np.ndarray]]:
     """Per-iteration node values (one dict per trip iteration)."""
     _, _, history = _batched_interpret(program, mems, record_iterations=True)
@@ -205,7 +211,7 @@ def compare_batch(
 
 
 def mismatch_strings(
-    program: Program,
+    program: LoopBuilder,
     sim_node_values: Dict[int, np.ndarray],
     sim_final_mem: np.ndarray,
     oracle_vals: Dict[int, np.ndarray],
@@ -262,7 +268,7 @@ class FuzzReport:
 
     kernel: str
     arch: str
-    status: str                      # ok | mismatch
+    status: str                      # ok | mismatch | unmapped | timeout | error
     ii: Optional[int] = None
     memories: int = 0
     batch: int = 0
@@ -270,7 +276,7 @@ class FuzzReport:
     failing: List[int] = field(default_factory=list)   # corpus indices
     mismatches: List[str] = field(default_factory=list)  # capped sample
     error: Optional[str] = None
-    map_time_s: float = 0.0          # 0: artifacts are mapped ahead of time
+    map_time_s: float = 0.0
     exec_time_s: float = 0.0
     oracle_time_s: float = 0.0
     mem_rate: float = 0.0            # memories verified per second
@@ -351,30 +357,56 @@ def _backend(dev: torch.device) -> str:
 
 def fuzz_kernel(name: str, arch: str = "4x4", memories: int = 1024,
                 batch: int = 1024, seed: int = 0, shrink: bool = False,
+                config=None,
                 failures_dir: str = "results/fuzz_failures",
                 strategies: Optional[Sequence[str]] = None,
                 device="cuda") -> FuzzReport:
-    """Fuzz the shipped artifact of ``name`` on ``arch`` end to end:
+    """Map one registry kernel on ``arch`` and fuzz it end to end:
     corpus -> batched differential run -> activity-based energy delta ->
     (on mismatch, with ``shrink``) shrink + divergence replay +
-    reproducer JSON under ``failures_dir``."""
+    reproducer JSON under ``failures_dir``.  A kernel that does not map
+    comes back ``unmapped`` or ``timeout``; nothing else stands in for
+    its mapping."""
+    from ..core.mapper import MapperConfig
+    from ..toolchain.session import Toolchain
     from .triage import triage_failure
 
-    artifact = load_artifact(arch, name)
-    mems = make_corpus(artifact, memories, seed=seed, strategies=strategies)
-    rep = fuzz_program(artifact, mems, batch=batch, device=device)
+    dev = resolve_device(device)
+    cfg = config or MapperConfig(per_ii_timeout_s=60.0,
+                                 total_timeout_s=120.0, ii_max=32)
+    tc = Toolchain(arch, cfg)
+    arch_name = tc.arch or f"{tc.grid.spec.rows}x{tc.grid.spec.cols}"
+    prog = tc.program(name)
+    t0 = time.monotonic()
+    try:
+        res = tc.map(prog)
+    except Exception as e:
+        return FuzzReport(kernel=name, arch=arch_name, status="error",
+                          backend=_backend(dev),
+                          error=f"{type(e).__name__}: {e}")
+    map_time = round(time.monotonic() - t0, 3)
+    if res.mapping is None:
+        status = "timeout" if res.status == "timeout" else "unmapped"
+        return FuzzReport(kernel=name, arch=arch_name, status=status,
+                          backend=_backend(dev), map_time_s=map_time)
+    artifact = Artifact.from_mapping(prog.builder, res.mapping,
+                                     arch=arch_name)
+    mems = make_corpus(name, memories, seed=seed, strategies=strategies)
+    rep = fuzz_program(artifact, mems, batch=batch, device=dev)
+    rep.map_time_s = map_time
     if rep.activity is not None:
         rep.energy = _energy_delta(artifact, rep.activity)
     if rep.failing and shrink:
-        triage_failure(artifact, mems, rep, device=device,
+        triage_failure(artifact, mems, rep, device=dev,
                        out_dir=failures_dir)
     return rep
 
 
 def _energy_delta(artifact: Artifact, activity: Dict) -> Dict:
-    """Static vs activity-based dynamic energy of one artifact.  The
-    mapping's utilization, which the artifact does not hold, enters
-    neither energy; 0.0 stands in for it."""
+    """Static vs activity-based dynamic energy of one artifact: the JAX
+    package's ``metrics_for_mapping`` pair, on the words the mapping
+    assembled to.  The mapping's utilization enters neither energy; 0.0
+    stands in for it."""
     cols = artifact.grid.cols
     static = runtime_metrics(artifact.asm, cols, 0.0)
     empirical = runtime_metrics(artifact.asm, cols, 0.0, activity=activity)

@@ -27,7 +27,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..cgra.artifact import Artifact, AssembledCIL
+from ..cgra.artifact import Artifact
+from ..cgra.bitstream import AssembledCIL
 from ..cgra.isa import encode_program
 from ..cgra.simulator import execute_asm
 from ..device import resolve_device

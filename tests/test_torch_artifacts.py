@@ -4,7 +4,9 @@ its parity checks against the JAX package's mapper and assembler.
 An artifact (``src/repro_torch/artifacts/<arch>/<kernel>.json``) is what
 a CGRA compiler hands to the hardware: the assembled bitstream, its
 presets and cell map, plus the CIL program the oracle replays.  The port
-executes artifacts; it does not map.  Regenerate every artifact with::
+reproduces them with its own mapper (``tests/test_torch_mapper.py``);
+these files were exported from the JAX package's.  Regenerate every
+artifact with::
 
     PYTHONPATH=src python tests/test_torch_artifacts.py --write
 

@@ -1,6 +1,7 @@
 """The CUDA kernels (cycle step and whole-program run, single and stacked)
 against their plain PyTorch versions, and the fuzz path's stacked run,
-activity harvest and triage against the CPU path, on the card.  These need an NVIDIA GPU with nvcc (the
+activity harvest and triage, and a kernel the port mapped itself,
+against the CPU path, on the card.  These need an NVIDIA GPU with nvcc (the
 kernels have no CPU mode):
 they carry the ``cuda`` marker and skip elsewhere.  They import nothing of
 JAX, so they run where only the port is installed::
@@ -19,6 +20,7 @@ from repro_torch.cgra.arch import Grid, neighbor_table  # noqa: E402
 from repro_torch.cgra.artifact import load_artifact  # noqa: E402
 from repro_torch.cgra.simulator import execute_asm  # noqa: E402
 from repro_torch.convert import fields_from_numpy, state_from_numpy  # noqa: E402
+from repro_torch.core.mapper import MapperConfig  # noqa: E402
 from repro_torch.fuzz.corpus import make_corpus  # noqa: E402
 from repro_torch.fuzz.activity import ActivityAccumulator  # noqa: E402
 from repro_torch.fuzz.engine import (fuzz_kernel, fuzz_program,  # noqa: E402
@@ -248,7 +250,11 @@ def test_fuzz_stacked_is_one_launch_with_the_single_kernel_verdicts(cuda):
 def test_activity_on_the_card_equals_the_cpu_path(cuda, arch, kernel):
     art = load_artifact(arch, kernel)
     mems = make_corpus(art, 600)
-    reports = [fuzz_kernel(kernel, arch, memories=600, batch=256, device=d)
+    # both runs map live: the CDCL backend maps the same way every time,
+    # where z3 (what "auto" picks when it is installed) may not
+    config = MapperConfig(backend="cdcl")
+    reports = [fuzz_kernel(kernel, arch, memories=600, batch=256,
+                           config=config, device=d)
                for d in (cuda, "cpu")]
     assert reports[0].activity == reports[1].activity is not None
     assert reports[0].energy == reports[1].energy is not None
@@ -257,3 +263,38 @@ def test_activity_on_the_card_equals_the_cpu_path(cuda, arch, kernel):
     acc.update(outs)
     assert acc._bits.device.type == "cuda"      # the sums stay on the card
     assert acc.report().to_dict()["memories"] == 600
+
+
+def test_fresh_mapping_runs_equal_on_card_and_cpu(cuda):
+    """gsm mapped and assembled by the port itself, run on the card, is
+    bit-equal to its plain run on the CPU (trace and final memory)."""
+    from repro_torch.cgra.artifact import Artifact
+    from repro_torch.toolchain import Toolchain
+
+    tc = Toolchain("4x4")
+    prog = tc.program("gsm")
+    mapping = tc.map(prog).mapping
+    art = Artifact.from_mapping(prog.builder, mapping)
+    mems = make_corpus("gsm", 300)
+    runs = [execute_asm(art.asm, art.grid, mems, batch=300, device=d)
+            for d in (cuda, "cpu")]
+    assert torch.equal(runs[0][1].cpu(), runs[1][1])
+    assert torch.equal(runs[0][0].mem.cpu(), runs[1][0].mem)
+    sims = [tc.simulate(prog, mapping, mems[0], batch=2, device=d)
+            for d in (cuda, "cpu")]
+    assert np.array_equal(sims[0].final_mem, sims[1].final_mem)
+    assert sims[0].node_values.keys() == sims[1].node_values.keys()
+    for n, vals in sims[0].node_values.items():
+        assert np.array_equal(vals, sims[1].node_values[n])
+
+
+def test_default_backend_mapping_fuzzes_ok_on_the_card(cuda):
+    """``fuzz_kernel`` with the default mapper config: on a host with z3
+    "auto" maps through the z3 session (the CDCL one elsewhere), and the
+    verdict must still be ``ok``."""
+    from repro_torch.core.backends import resolve_backend
+
+    rep = fuzz_kernel("gsm", "4x4", memories=512, batch=256, device=cuda)
+    assert rep.status == "ok" and rep.failing == [], rep.mismatches[:2]
+    assert rep.ii >= 5 and rep.map_time_s > 0      # mII of gsm on 4x4 is 5
+    assert resolve_backend("auto") in ("z3", "cdcl")

@@ -1,6 +1,7 @@
 """repro_torch.fuzz against repro.fuzz: corpora byte for byte, the batched
 oracle, fuzz verdicts, mismatch strings and switching activity (also under
-an injected fault), and the CLI digest with activity and energy, also with
+an injected fault), ``fuzz_kernel`` mapping live (mapped and unmapped
+kernels), and the CLI digest with activity and energy, also with
 ``--shrink``.  Everything runs on the CPU with exact equality.
 """
 import dataclasses
@@ -22,6 +23,7 @@ from repro.fuzz import cli as jax_cli  # noqa: E402
 from repro.fuzz import corpus as jax_corpus  # noqa: E402
 from repro.fuzz import engine as jax_engine  # noqa: E402
 from repro.fuzz.triage import inject_fault, triage_failure  # noqa: E402
+from repro_torch.cgra import artifact as port_artifact  # noqa: E402
 from repro_torch.cgra.artifact import load_artifact  # noqa: E402
 from repro_torch.convert import artifact_from_parts  # noqa: E402
 from repro_torch.fuzz import cli, corpus, engine  # noqa: E402
@@ -138,7 +140,10 @@ def test_cli_shrink_writes_the_jax_reproducer(tmp_path, monkeypatch, capsys):
     faulty = dataclasses.replace(art, asm=artifact_from_parts(
         mutated.name, mutated.ii, mutated.trip, mutated.words(),
         mutated.presets_out, mutated.presets_reg, mutated.node_of_cell))
-    monkeypatch.setattr(engine, "load_artifact", lambda arch, name: faulty)
+    # fuzz_kernel maps gsm live: its fresh artifact assembles to the
+    # faulty words
+    monkeypatch.setattr(port_artifact, "assemble",
+                        lambda program, mapping: faulty.asm)
     digest = tmp_path / "digest.json"
     rc = cli.main(["--device", "cpu", "--kernels", "gsm", "--memories",
                    "64", "--batch", "32", "--shrink", "--failures-dir",
@@ -160,3 +165,33 @@ def test_cli_shrink_writes_the_jax_reproducer(tmp_path, monkeypatch, capsys):
         (want.failing, want.activity, want.divergence)
     port = json.loads(Path(rep["reproducer"]).read_text())
     assert port == json.loads(Path(want.reproducer).read_text())
+
+
+@pytest.mark.parametrize("kernel,arch", [("gsm", "4x4"), ("sqrt", "3x3"),
+                                         ("dotprod", "4x4")])
+def test_fuzz_kernel_maps_live_as_jax_does(kernel, arch):
+    """Both packages map the registry kernel themselves, then fuzz it."""
+    rep = engine.fuzz_kernel(kernel, arch, memories=48, batch=32, seed=1,
+                             device="cpu")
+    want = jax_engine.fuzz_kernel(kernel, arch, memories=48, batch=32,
+                                  seed=1, backend="ref")
+    assert rep.map_time_s > 0
+    assert (rep.kernel, rep.arch, rep.status, rep.ii, rep.memories,
+            rep.batch, rep.backend) == (want.kernel, want.arch, want.status,
+                                        want.ii, want.memories, want.batch,
+                                        want.backend)
+    assert _verdict(rep) == _verdict(want)
+    assert rep.energy == want.energy is not None
+
+
+def test_fuzz_kernel_reports_an_unmapped_kernel_as_jax_does():
+    from repro.core.mapper import MapperConfig as JaxConfig
+    from repro_torch.core.mapper import MapperConfig
+
+    rep = engine.fuzz_kernel("sha", "2x2", config=MapperConfig(ii_max=4),
+                             device="cpu")
+    want = jax_engine.fuzz_kernel("sha", "2x2", config=JaxConfig(ii_max=4))
+    got, want = rep.to_dict(), want.to_dict()
+    assert got.pop("map_time_s") < 1.0 and want.pop("map_time_s") < 1.0
+    assert got == want
+    assert rep.status == "unmapped"

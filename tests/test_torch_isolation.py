@@ -1,6 +1,7 @@
 """repro_torch stands alone: no file of the port imports ``jax`` or
-``repro``, the package runs with both blocked, and an entry point asked
-for the card on a host without one raises instead of using the CPU."""
+``repro``, the package maps and runs with both blocked, and an entry point
+asked for the card on a host without one raises instead of using the
+CPU."""
 import ast
 import os
 import subprocess
@@ -46,6 +47,14 @@ def test_port_runs_with_jax_and_repro_blocked():
         "mem = make_corpus(art, 1)[0]\n"
         "sim = simulate(art, mem, device='cpu')\n"
         "assert verify(art, mem, device='cpu') == []\n"
+        "from repro_torch.toolchain import Toolchain\n"
+        "tc = Toolchain('4x4')\n"
+        "prog = tc.program('bitcount')\n"
+        "res = tc.map(prog)\n"
+        "assert res.status == 'mapped'\n"
+        "assert verify(prog.builder, res.mapping, mem, device='cpu') == []\n"
+        "assert tc.simulate(prog, res.mapping, mem, device='cpu')"
+        ".total_rows == sim.total_rows\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok', sim.total_rows)\n")
