@@ -30,9 +30,16 @@ per line:
    JSON key for key, and ``fuzz_kernel`` reports sha (``ii_max`` 4) and
    sha2 at 2x2 ``unmapped``, the ``unsat-capped`` rows of
    ``results/BENCH_fuzz.json``; map seconds per kernel and their sum.
-   Then the main path: ``fuzz_kernel`` on the 16 shipped kernels, each
-   mapped live under ``MAP_CONFIG`` (its time to a verdict includes the
-   mapping), 2048 memories in batches of 1024, every verdict ``ok`` and
+   Then the cosim phase: ``repro_torch.frontend.run_all`` (the path of
+   ``python -m repro_torch cosim``) traces, legalizes, maps (``MAP_CONFIG``)
+   and runs the 11 traced kernels at 4x4 over 16 seeds each, one
+   whole-program launch a kernel and the cycle step never; each ``ok``
+   with no mismatch, at the II of its shipped artifact, with that
+   artifact's program, and its simulation bit-equal to the CPU plain
+   path's from the same mapping; seconds, the mapping's share and the
+   launches.  Then the main path: ``fuzz_kernel`` on the 16 shipped
+   kernels, each mapped live under ``MAP_CONFIG`` (its time to a verdict
+   includes the mapping), 2048 memories in batches of 1024, every verdict ``ok`` and
    equal to the status of the same kernel in ``results/BENCH_fuzz.json``;
    the whole-program kernel must launch once per batch chunk and the
    cycle step never;
@@ -60,7 +67,9 @@ per line:
    plain version and to 15 single launches at that shape, then timed
    beside its byte bound, its serial floor, those 15 single launches and
    its plain version;
-7. the kernels line, then the device line last.
+7. the kernels line (the whole-program run's launches summed over the
+   fuzz main path and the cosim phase, and given per path), then the
+   device line last.
 
 Any failure raises and exits non-zero.  Without CUDA it exits 1 and
 prints no result.
@@ -91,6 +100,7 @@ MAP_CONFIG = dict(backend="cdcl", per_ii_timeout_s=60.0,
 #: (``benchmarks/fuzz_throughput.py:KERNEL_CONFIG``)
 UNMAPPED = (("sha", 4), ("sha2", 32))
 FAILURES_DIR = ROOT / "build" / "chip_smoke_failures"
+COSIM_SEEDS = 16                   # python -m repro_torch cosim's default
 STREAM_MEMORIES, STREAM_BATCH = 65536, 16384
 TIMED_BATCHES = (1024, 16384)
 TIMED_P, TIMED_M = 16, 128
@@ -426,6 +436,87 @@ def map_phase(artifacts, device) -> None:
           "auto_backend_here": resolve_backend("auto"),
           "unmapped_map_seconds": unmapped,
           "seconds": round(time.monotonic() - t0, 3)})
+
+
+def cosim_phase(device) -> int:
+    """Phase 4, second part: ``repro_torch.frontend.run_all``, the
+    ``cosim`` verb's path, over the 11 traced kernels at 4x4 with 16 seeds
+    each under ``MAP_CONFIG``: each kernel traced and legalized by the
+    port's front-end, mapped on the host, its 16-memory batch run in one
+    whole-program launch and compared bit for bit with the numpy
+    reference.  Every kernel must come out ``ok`` at the II of its shipped
+    artifact, with the artifact's program, and its simulation, re-run from
+    the same mapping on the CPU plain path, bit-equal to the card's.  A
+    wrapper around ``Toolchain.simulate`` records each simulation (its
+    mapping, memories, result and seconds) for those checks.  Returns the
+    launches of the whole-program kernel over the run."""
+    import numpy as np
+    from repro_torch.cgra.artifact import ARTIFACT_ROOT
+    from repro_torch.frontend import TRACED_KERNELS, run_all
+    from repro_torch.kernels.pe_array import cycle_step, run_cycles
+    from repro_torch.toolchain import Toolchain
+
+    simulate, sims = Toolchain.simulate, {}
+
+    def recorded(self, source, mapping, mem, batch=1, device="cuda"):
+        t1 = time.monotonic()
+        sim = simulate(self, source, mapping, mem, batch=batch, device=device)
+        sims[source.name] = (self, source, mapping, mem, batch, sim,
+                             time.monotonic() - t1)
+        return sim
+
+    t0 = time.monotonic()
+    Toolchain.simulate = recorded
+    try:
+        cycle_step.launches = run_cycles.launches = 0
+        doc = run_all(seeds=COSIM_SEEDS, config=map_config(), device=device)
+        steps, runs = cycle_step.launches, run_cycles.launches
+    finally:
+        Toolchain.simulate = simulate
+    wall = time.monotonic() - t0
+    reports = doc["kernels"]
+    check(sorted(r["kernel"] for r in reports) == sorted(TRACED_KERNELS)
+          and len(reports) == 11, f"cosim ran {len(reports)} kernels")
+    for rep in reports:
+        name = rep["kernel"]
+        check(rep["status"] == "ok" and rep["mismatches"] == []
+              and rep["seeds"] == COSIM_SEEDS,
+              f"cosim {name}: {rep['status']} {rep['mismatches'][:2]}")
+        check(rep["backend"] == MAP_CONFIG["backend"],
+              f"cosim {name}: mapped by {rep['backend']}")
+        shipped = json.loads(
+            (ARTIFACT_ROOT / "4x4" / f"{name}.json").read_text())
+        check(rep["ii"] == shipped["ii"],
+              f"cosim {name}: II {rep['ii']} != shipped {shipped['ii']}")
+        tc, prog, mapping, mems, batch, sim, exec_s = sims[name]
+        check(prog.builder.to_dict() == shipped["program"]
+              and TRACED_KERNELS[name].build().to_dict()
+              == shipped["program"],
+              f"cosim {name}: traced program differs from the artifact's")
+        cpu = tc.simulate(prog, mapping, mems, batch=batch, device="cpu")
+        check(np.array_equal(sim.final_mem, cpu.final_mem)
+              and sim.node_values.keys() == cpu.node_values.keys()
+              and all(np.array_equal(v, cpu.node_values[n])
+                      for n, v in sim.node_values.items()),
+              f"cosim {name}: the card's run differs from the CPU's")
+        emit({"phase": "cosim", "kernel": name, "status": rep["status"],
+              "ii": rep["ii"], "mii": rep["mii"],
+              "ii_bound": rep["ii_bound"], "map_time_s": rep["map_time_s"],
+              "cegar_rounds": rep["cegar_rounds"],
+              "exec_seconds": round(exec_s, 6), "seeds": rep["seeds"],
+              "program_equal_to_shipped": True, "equal_to_cpu": True})
+    check(runs == len(reports),
+          f"cosim launched run_cycles {runs} times, not once a kernel")
+    check(steps == 0, f"cycle_step launched {steps} times in cosim")
+    map_s = sum(r["map_time_s"] for r in reports)
+    emit({"phase": "cosim_summary", "kernels": len(reports),
+          "ok": doc["summary"]["ok"], "seeds": COSIM_SEEDS,
+          "run_cycles_launches": runs, "cycle_step_launches": steps,
+          "map_seconds": round(map_s, 3),
+          "map_share": round(map_s / wall, 4),
+          "exec_seconds": round(sum(v[-1] for v in sims.values()), 6),
+          "seconds": round(wall, 3)})
+    return runs
 
 
 def main_path(artifacts, device):
@@ -952,6 +1043,7 @@ def main() -> int:
                     run_cycles_vs_plain(device))
     stacked_err = stacked_vs_plain(device)
     map_phase(artifacts, device)
+    cosim_runs = cosim_phase(device)
     steps, runs, reports = main_path(artifacts, device)
     stacked_runs = stacked_main_path(artifacts, reports, device)
     activity_phase(reports)
@@ -964,21 +1056,23 @@ def main() -> int:
     stacked_times = stacked_timing(device, artifacts)
 
     def line(name, launches, err, ms, plain_ms, bound_ms,
-             replaces="src/repro/kernels/pe_array.py:67"):
+             replaces="src/repro/kernels/pe_array.py:67", **extra):
         return {"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/pe_array.cu",
                 "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": "bytes", "library_ms": None}
+                "bound_by": "bytes", "library_ms": None, **extra}
 
     step_ms, _, step_plain_ms, step_bound_ms = step_times[MAIN_BATCH]
     emit({"phase": "done", "seconds": round(time.monotonic() - t_start, 3)})
     emit({"kernels": [
         line("pe_array.cycle_step", steps, step_err, step_ms, step_plain_ms,
              step_bound_ms),
-        line("pe_array.run_cycles", runs, fused_err,
-             *fused_times[MAIN_BATCH]),
+        line("pe_array.run_cycles", runs + cosim_runs, fused_err,
+             *fused_times[MAIN_BATCH],
+             launches_by_path={"fuzz main path": runs,
+                               "cosim": cosim_runs}),
         line("pe_array.run_cycles (stacked)", stacked_runs,
              max(stacked_err, stacked_times[0]), *stacked_times[1:],
              replaces="src/repro/fuzz/engine.py:508")]})

@@ -4,9 +4,8 @@ A copy of ``src/repro/cgra/registry.py``.  Two modules register kernels
 as an import side effect:
 
 * :mod:`repro_torch.cgra.programs`, the hand-written Table-6 benchmarks;
-* :mod:`repro_torch.cgra.traced`, the traced kernels, rebuilt from the
-  program part of their shipped artifacts until the front-end is ported
-  (it then takes that module's place).
+* :mod:`repro_torch.frontend.kernels`, the traced kernels, legalized from
+  their Python loop bodies by the port's own front-end.
 
 :func:`ensure_registered` imports both, in that order, so the registry
 names the same kernels in the same order as the JAX package's.  Each
@@ -24,7 +23,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 # modules that register kernels as an import side effect
-_PROVIDERS = (".programs", ".traced")
+_PROVIDERS = (".programs", "..frontend.kernels")
 
 ORIGINS = ("handwritten", "traced")
 

@@ -79,10 +79,11 @@ def kms_ii_upper_bound(dfg: DFG, num_pes: Optional[int] = None) -> int:
     At ``II = L`` (the mobility-schedule length) the KMS degenerates to a
     single un-folded copy of the MS — successive iterations no longer
     overlap, so any II beyond it buys nothing.  Traced kernels assert they
-    map at some ``II <= kms_ii_upper_bound`` (repro.frontend.verify); a
-    failure means the front-end emitted a DFG the mapper cannot even
-    serialize.  ``num_pes`` folds in the resource/recurrence lower bound so
-    the result is always a valid search ceiling (``>= mII``).
+    map at some ``II <= kms_ii_upper_bound``
+    (repro_torch.frontend.verify); a failure means the front-end emitted
+    a DFG the mapper cannot even serialize.  ``num_pes`` folds in the
+    resource/recurrence lower bound so the result is always a valid
+    search ceiling (``>= mII``).
     """
     ub = max(1, asap_alap(dfg).length)
     if num_pes is not None:

@@ -65,9 +65,11 @@ def kernel_regions(name: str) -> Tuple[Region, ...]:
 
     spec = get_kernel(name)
     if spec.origin == "traced":
-        from ..cgra.traced import traced_regions
+        from ..frontend.kernels import TRACED_KERNELS
 
-        return tuple(Region(*r) for r in traced_regions(name))
+        mem_regions = TRACED_KERNELS[name].spec.mem_regions
+        return tuple(Region(r.base, r.length, r.lo, r.hi)
+                     for r in mem_regions)
     return _HANDWRITTEN_REGIONS.get(name, _DEFAULT_REGIONS)
 
 

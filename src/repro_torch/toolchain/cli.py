@@ -1,9 +1,12 @@
-"""``python -m repro_torch map``: compile one registry kernel end to end.
+"""``python -m repro_torch map``: compile one registry kernel end to end;
+``python -m repro_torch list``: name the registered kernels.
 
-Counterpart of the ``map`` verb of ``src/repro/toolchain/cli.py``::
+Counterparts of the ``map`` and ``list`` verbs of
+``src/repro/toolchain/cli.py``::
 
     python -m repro_torch map gsm --grid 2x2 --json
     python -m repro_torch map dotprod --arch bordermem-4x4 --no-oracle
+    python -m repro_torch list --origin traced
 
 It runs a :class:`~repro_torch.toolchain.session.Toolchain` compile
 (source -> map -> assemble -> metrics) and prints a human summary or the
@@ -85,6 +88,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     else:
         _print_human(cr)
     return 0 if cr.ok else 1
+
+
+def list_main(argv: Optional[List[str]] = None) -> int:
+    """The registered kernels in registration order, one per line with its
+    origin, then their count."""
+    from ..cgra.registry import ORIGINS, get_kernel, kernel_names
+
+    ap = argparse.ArgumentParser(prog="python -m repro_torch list",
+                                 description="list registered kernels")
+    ap.add_argument("--origin", default=None, choices=ORIGINS)
+    args = ap.parse_args(argv)
+    names = kernel_names(origin=args.origin)
+    for name in names:
+        spec = get_kernel(name)
+        print(f"{name:16s} {spec.origin}")
+    print(f"{len(names)} kernels")
+    return 0
 
 
 if __name__ == "__main__":

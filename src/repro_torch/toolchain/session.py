@@ -21,7 +21,8 @@ portfolio racer's ``jobs=`` and the resilient fleet behind
 ``compile_many``.
 
 Sources accepted by the ``program`` stage: a registry kernel name, a
-:class:`~repro_torch.cgra.programs.LoopBuilder`, a bare
+:class:`~repro_torch.cgra.programs.LoopBuilder`, a
+:class:`~repro_torch.frontend.TracedKernel`, a bare
 :class:`~repro_torch.core.dfg.DFG` (map-only), or an existing
 :class:`Program`.
 """
@@ -148,6 +149,16 @@ class Toolchain:
             )
         if isinstance(source, DFG):
             return Program(name=source.name, origin="dfg", dfg=source)
+        if hasattr(source, "spec") and hasattr(source, "build"):
+            # TracedKernel: legalize to a fresh LoopBuilder
+            builder = source.build()
+            return Program(
+                name=source.name,
+                origin="traced",
+                dfg=builder.build_dfg(),
+                builder=builder,
+                make_mem=getattr(source, "make_mem", None),
+            )
         if hasattr(source, "build_dfg"):
             # a LoopBuilder handed in directly
             return Program(
@@ -158,7 +169,7 @@ class Toolchain:
             )
         msg = (
             f"unsupported kernel source {type(source).__name__}: expected "
-            "a registry name, LoopBuilder, DFG or Program"
+            "a registry name, LoopBuilder, TracedKernel, DFG or Program"
         )
         raise StageError("source", msg)
 

@@ -13,7 +13,8 @@ artifact with::
 The tests below hold each committed artifact to what ``repro`` produces
 now: the program part to the registry program, and (for every kernel but
 fir4, whose 20 s solve is held by the execution parity tests instead) the
-bitstream to a fresh map + assemble.
+bitstream to a fresh map + assemble.  The port legalizes the traced
+programs with its own front-end (``tests/test_torch_frontend.py``).
 """
 from __future__ import annotations
 
@@ -62,12 +63,12 @@ def _operand(operand):
     return ["int", int(operand)]
 
 
-def program_dict(name: str) -> dict:
-    """The registry program of ``name`` plus its corpus layout, as an
-    artifact stores them."""
-    prog = kernel_program(name)
+def builder_dict(prog) -> dict:
+    """A JAX ``LoopBuilder`` as an artifact stores its program (the form
+    of the port's ``LoopBuilder.to_dict``)."""
     names = [c.name for c in prog.carries]
-    assert len(set(names)) == len(names), f"{name}: duplicate carry names"
+    assert len(set(names)) == len(names), \
+        f"{prog.name}: duplicate carry names"
     nodes = []
     for node in prog.nodes:
         a, b = prog.node_srcs[node.id]
@@ -76,15 +77,21 @@ def program_dict(name: str) -> dict:
                       "imm": prog.node_imm[node.id],
                       "flag_dep": prog.flag_deps.get(node.id)})
     return {
-        "program": {
-            "name": prog.name,
-            "trip": prog.trip,
-            "nodes": nodes,
-            "carries": [{"name": c.name, "init": c.init, "update": c.update}
-                        for c in prog.carries],
-            "result_nodes": dict(prog.result_nodes),
-            "topo_order": prog.build_dfg().topo_order(),
-        },
+        "name": prog.name,
+        "trip": prog.trip,
+        "nodes": nodes,
+        "carries": [{"name": c.name, "init": c.init, "update": c.update}
+                    for c in prog.carries],
+        "result_nodes": dict(prog.result_nodes),
+        "topo_order": prog.build_dfg().topo_order(),
+    }
+
+
+def program_dict(name: str) -> dict:
+    """The registry program of ``name`` plus its corpus layout, as an
+    artifact stores them."""
+    return {
+        "program": builder_dict(kernel_program(name)),
         "regions": [[r.base, r.length, r.lo, r.hi]
                     for r in kernel_regions(name)],
         "wide_product": uses_wide_product(name),

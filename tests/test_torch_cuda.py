@@ -1,9 +1,9 @@
 """The CUDA kernels (cycle step and whole-program run, single and stacked)
 against their plain PyTorch versions, and the fuzz path's stacked run,
-activity harvest and triage, and a kernel the port mapped itself,
-against the CPU path, on the card.  These need an NVIDIA GPU with nvcc (the
-kernels have no CPU mode):
-they carry the ``cuda`` marker and skip elsewhere.  They import nothing of
+activity harvest and triage, a kernel the port mapped itself, and the
+traced front-end's co-simulation, against the CPU path, on the card.
+These need an NVIDIA GPU with nvcc (the kernels have no CPU mode): they
+carry the ``cuda`` marker and skip elsewhere.  They import nothing of
 JAX, so they run where only the port is installed::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -298,3 +298,54 @@ def test_default_backend_mapping_fuzzes_ok_on_the_card(cuda):
     assert rep.status == "ok" and rep.failing == [], rep.mismatches[:2]
     assert rep.ii >= 5 and rep.map_time_s > 0      # mII of gsm on 4x4 is 5
     assert resolve_backend("auto") in ("z3", "cdcl")
+
+
+def _cosim_doc(rep) -> dict:
+    doc = rep.to_dict()
+    doc.pop("map_time_s")
+    return doc
+
+
+@pytest.mark.parametrize("kernel", ["dotprod", "argmax"])
+def test_cosimulate_on_the_card_equals_the_cpu_run(cuda, kernel):
+    """One ``run_cycles`` launch for the 16-seed batch, and the report
+    equal to the CPU run's but for the mapping time (CDCL maps the same
+    way every time)."""
+    from repro_torch.frontend import TRACED_KERNELS, cosimulate
+
+    config = MapperConfig(backend="cdcl", per_ii_timeout_s=60.0,
+                          total_timeout_s=120.0, ii_max=32)
+    cycle_step.launches = run_cycles.launches = 0
+    card = cosimulate(TRACED_KERNELS[kernel], config=config, device=cuda)
+    assert (run_cycles.launches, cycle_step.launches) == (1, 0)
+    cpu = cosimulate(TRACED_KERNELS[kernel], config=config, device="cpu")
+    assert card.status == "ok" and card.seeds == 16, card.mismatches[:2]
+    assert _cosim_doc(card) == _cosim_doc(cpu)
+
+
+def test_default_config_cosim_is_ok_on_the_card(cuda):
+    """``DEFAULT_CONFIG`` ("auto": z3 where it is installed) co-simulates
+    dotprod bit-exactly."""
+    from repro_torch.frontend import TRACED_KERNELS, cosimulate
+
+    rep = cosimulate(TRACED_KERNELS["dotprod"], device=cuda)
+    assert rep.status == "ok" and rep.mismatches == []
+    assert rep.ii <= rep.ii_bound
+
+
+def test_cosim_without_the_kernel_library_raises(cuda, monkeypatch):
+    """No fallback: when the kernel library cannot be loaded, co-simulation
+    on the card fails instead of running the plain loop."""
+    from repro_torch.frontend import TRACED_KERNELS, cosimulate
+    from repro_torch.kernels import build
+    from repro_torch.toolchain import StageError
+
+    def unloadable():
+        raise OSError("kernel library unloadable")
+
+    monkeypatch.setattr(build, "library", unloadable)
+    run_cycles.launches = 0
+    with pytest.raises(StageError, match="kernel library unloadable"):
+        cosimulate(TRACED_KERNELS["dotprod"],
+                   config=MapperConfig(backend="cdcl"), device=cuda)
+    assert run_cycles.launches == 0

@@ -1,7 +1,7 @@
 """repro_torch stands alone: no file of the port imports ``jax`` or
-``repro``, the package maps and runs with both blocked, and an entry point
-asked for the card on a host without one raises instead of using the
-CPU."""
+``repro``, the package maps, runs and co-simulates a traced kernel with
+both blocked, and an entry point asked for the card on a host without one
+raises instead of using the CPU."""
 import ast
 import os
 import subprocess
@@ -55,6 +55,9 @@ def test_port_runs_with_jax_and_repro_blocked():
         "assert verify(prog.builder, res.mapping, mem, device='cpu') == []\n"
         "assert tc.simulate(prog, res.mapping, mem, device='cpu')"
         ".total_rows == sim.total_rows\n"
+        "from repro_torch.frontend import TRACED_KERNELS, cosimulate\n"
+        "rep = cosimulate(TRACED_KERNELS['dotprod'], seeds=2, device='cpu')\n"
+        "assert rep.status == 'ok', rep\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok', sim.total_rows)\n")
