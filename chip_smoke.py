@@ -38,11 +38,11 @@ per line:
    artifact's program, and its simulation bit-equal to the CPU plain
    path's from the same mapping; seconds, the mapping's share and the
    launches.  Then the main path: ``fuzz_kernel`` on the 16 shipped
-   kernels, each mapped live under ``MAP_CONFIG`` (its time to a verdict
-   includes the mapping), 2048 memories in batches of 1024, every verdict ``ok`` and
-   equal to the status of the same kernel in ``results/BENCH_fuzz.json``;
-   the whole-program kernel must launch once per batch chunk and the
-   cycle step never;
+   kernels, each mapped live under ``MAP_CONFIG`` into a fresh mapping
+   cache (its time to a verdict includes the mapping), 2048 memories in
+   batches of 1024, every verdict ``ok`` and equal to the status of the
+   same kernel in ``results/BENCH_fuzz.json``; the whole-program kernel
+   must launch once per batch chunk and the cycle step never;
    b. the stacked main path: ``fuzz_stacked`` on the 15 4x4 artifacts x
       2048 seed-0 memories, one launch, every verdict ``ok`` and its
       failing memories equal to phase 4's and to ``stacked_failing`` in
@@ -54,6 +54,9 @@ per line:
       gives the CPU run's verdicts, shrinks to the same memory and
       divergence, and writes the CPU run's reproducer apart from
       ``backend`` (under ``build/``);
+   e. the main path again through its cache: 16 hits, each artifact
+      equal to the cold pass's, status, failing memories, activity and
+      energy equal; cold and warm seconds and their mapping seconds;
 5. a stream: gsm over 65,536 memories in batches of 16,384, and one
    main-path run of gsm under ``torch.profiler`` (device busy and idle
    share, the kernel's device time per launch);
@@ -67,15 +70,29 @@ per line:
    plain version and to 15 single launches at that shape, then timed
    beside its byte bound, its serial floor, those 15 single launches and
    its plain version;
-7. the kernels line (the whole-program run's launches summed over the
-   fuzz main path and the cosim phase, and given per path), then the
-   device line last.
+7. mapping at scale, forked after CUDA is up:
+   a. the fleet: ``compile_many`` over the 16 shipped (kernel, arch)
+      points on min(8, CPUs) workers into a fresh cache, 16 of 16 ``ok``
+      at the shipped II with the shipped mapping (or the worker grid's,
+      see ``fleet_phase``), each bitstream fuzzed ``ok`` on the card;
+      the same call again: 16 cache hits;
+   b. the race: fir4 and stencil3 at 4x4 raced with
+      ``portfolio:cdcl-seq+cdcl-pair`` on 4 workers, each ``mapped`` at
+      its shipped II and fuzzed ``ok`` on the card, race seconds beside
+      phase ``map``'s; gsm with ``portfolio:auto`` (z3 where installed)
+      ``ok``;
+   c. chaos: ``REPRO_CHAOS`` crashes each worker's first attempt on a
+      two-point ``compile_many``; both heal on the retry at the clean
+      fleet's II;
+8. the kernels line (the whole-program run's launches summed over the
+   paths that run it, and given per path), then the device line last.
 
 Any failure raises and exits non-zero.  Without CUDA it exits 1 and
 prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -104,6 +121,14 @@ COSIM_SEEDS = 16                   # python -m repro_torch cosim's default
 STREAM_MEMORIES, STREAM_BATCH = 65536, 16384
 TIMED_BATCHES = (1024, 16384)
 TIMED_P, TIMED_M = 16, 128
+#: fresh mapping caches of the main path and the fleet (under build/,
+#: which git ignores)
+CACHE_ROOT = ROOT / "build" / "chip_smoke_cache"
+#: the racing strategy of phase ``race`` (CDCL only: z3 mappings differ
+#: from run to run, ROADMAP.md section 3), its kernels, and its workers
+RACE_STRATEGY = "portfolio:cdcl-seq+cdcl-pair"
+RACE_KERNELS = ("fir4", "stencil3")
+RACE_JOBS = 4
 
 
 def emit(obj) -> None:
@@ -143,6 +168,38 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def fresh_cache(name: str):
+    """An empty ``MappingCache`` under ``CACHE_ROOT``."""
+    import shutil
+    from repro_torch.dse import MappingCache
+
+    path = CACHE_ROOT / name
+    shutil.rmtree(path, ignore_errors=True)
+    return MappingCache(str(path))
+
+
+@contextlib.contextmanager
+def recorded_artifacts():
+    """Within the block, every ``Artifact.from_mapping`` (what
+    ``fuzz_kernel`` calls on each fresh or cached mapping) also lands in
+    the yielded dict, keyed by kernel."""
+    from repro_torch.cgra.artifact import Artifact
+
+    made, orig = {}, Artifact.__dict__["from_mapping"]
+    make = Artifact.from_mapping
+
+    def from_mapping(program, mapping, arch=None):
+        art = make(program, mapping, arch=arch)
+        made[art.kernel] = art
+        return art
+
+    Artifact.from_mapping = from_mapping
+    try:
+        yield made
+    finally:
+        Artifact.from_mapping = orig
 
 
 def grid_for(P: int):
@@ -436,6 +493,7 @@ def map_phase(artifacts, device) -> None:
           "auto_backend_here": resolve_backend("auto"),
           "unmapped_map_seconds": unmapped,
           "seconds": round(time.monotonic() - t0, 3)})
+    return seconds
 
 
 def cosim_phase(device) -> int:
@@ -519,9 +577,11 @@ def cosim_phase(device) -> int:
     return runs
 
 
-def main_path(artifacts, device):
-    """Phase 4: the fuzz path on every shipped kernel, each mapped live.
-    Returns the launches of (cycle_step, run_cycles) over the run."""
+def main_path(artifacts, device, cache, warm=False):
+    """Phase 4: the fuzz path on every shipped kernel, each mapped live
+    into ``cache`` (a fresh directory), or, with ``warm``, answered from
+    it.  Returns the launches of (cycle_step, run_cycles) over the run,
+    the reports and the artifacts ``fuzz_kernel`` built."""
     from repro_torch.fuzz.engine import fuzz_kernel
     from repro_torch.kernels.pe_array import cycle_step, run_cycles
 
@@ -529,16 +589,19 @@ def main_path(artifacts, device):
     expected_status = {row["kernel"]: row["status"] for row in bench["rows"]}
     chunks = -(-MAIN_MEMORIES // MAIN_BATCH)
     rows_run = sum(a.asm.total_rows * chunks for a in artifacts)
+    phase = "main_path_warm" if warm else "main_path"
     t0 = time.monotonic()
-    cycle_step.launches = run_cycles.launches = 0
-    reports = [fuzz_kernel(a.kernel, a.arch, memories=MAIN_MEMORIES,
-                           batch=MAIN_BATCH, seed=0, config=map_config(),
-                           device=device)
-               for a in artifacts]
-    steps, runs = cycle_step.launches, run_cycles.launches
+    with recorded_artifacts() as made:
+        cycle_step.launches = run_cycles.launches = 0
+        reports = [fuzz_kernel(a.kernel, a.arch, memories=MAIN_MEMORIES,
+                               batch=MAIN_BATCH, seed=0, config=map_config(),
+                               cache=cache, device=device)
+                   for a in artifacts]
+        steps, runs = cycle_step.launches, run_cycles.launches
     wall = time.monotonic() - t0
     for rep in reports:
-        emit({"phase": "fuzz", "kernel": rep.kernel, "arch": rep.arch,
+        emit({"phase": "fuzz_warm" if warm else "fuzz", "kernel": rep.kernel,
+              "arch": rep.arch,
               "status": rep.status, "ii": rep.ii, "memories": rep.memories,
               "batch": rep.batch, "backend": rep.backend,
               "mem_rate": rep.mem_rate, "map_time_s": rep.map_time_s,
@@ -553,13 +616,219 @@ def main_path(artifacts, device):
           f"run_cycles launched {runs} times, not once for each of "
           f"{len(artifacts) * chunks} batch chunks")
     check(steps == 0, f"cycle_step launched {steps} times on the main path")
-    emit({"phase": "main_path", "kernels": len(reports),
+    check(sorted(made) == sorted(a.kernel for a in artifacts),
+          f"{phase}: fuzz_kernel built artifacts for {sorted(made)}")
+    emit({"phase": phase, "kernels": len(reports),
           "memories_each": MAIN_MEMORIES, "batch": MAIN_BATCH,
           "run_cycles_launches": runs, "cycle_step_launches": steps,
-          "rows_run": rows_run,
+          "rows_run": rows_run, "cache": cache.stats(),
+          "cache_entries": len(cache),
           "map_seconds": round(sum(r.map_time_s for r in reports), 3),
           "seconds": round(wall, 3)})
-    return steps, runs, reports
+    return steps, runs, reports, made
+
+
+def main_path_warm(artifacts, device, cache, cold_reports, cold_made,
+                   cold_seconds):
+    """Phase 4e: the 16 kernels again through the main path's cache: 16
+    hits, no new entry, each artifact equal to the cold pass's, and
+    status, failing memories, activity and energy equal.  Returns the
+    launches of run_cycles over the run."""
+    hits, misses = cache.stats()["hits"], cache.stats()["misses"]
+    check(hits == 0 and misses == len(artifacts) == len(cache),
+          f"cold pass: cache {cache.stats()}, {len(cache)} entries")
+    t0 = time.monotonic()
+    steps, runs, reports, made = main_path(artifacts, device, cache,
+                                           warm=True)
+    wall = time.monotonic() - t0
+    stats = cache.stats()
+    check(stats["hits"] == len(artifacts) and stats["misses"] == misses
+          and len(cache) == len(artifacts),
+          f"warm pass: cache {stats}, {len(cache)} entries")
+    cold = {r.kernel: r for r in cold_reports}
+    for rep in reports:
+        was = cold[rep.kernel]
+        check(made[rep.kernel].to_dict() == cold_made[rep.kernel].to_dict(),
+              f"{rep.kernel}: warm artifact differs from the cold one")
+        check((rep.status, rep.ii, rep.failing, rep.activity, rep.energy)
+              == (was.status, was.ii, was.failing, was.activity, was.energy),
+              f"{rep.kernel}: warm report differs from the cold one")
+    emit({"phase": "main_path_warm_summary", "kernels": len(reports),
+          "cache_hits": stats["hits"], "artifacts_equal": len(reports),
+          "reports_equal": len(reports),
+          "cold_seconds": round(cold_seconds, 3),
+          "warm_seconds": round(wall, 3),
+          "cold_map_seconds": round(sum(r.map_time_s
+                                        for r in cold_reports), 3),
+          "warm_map_seconds": round(sum(r.map_time_s for r in reports), 3)})
+    return runs
+
+
+def fleet_phase(artifacts, device):
+    """Phase 7a: ``compile_many`` over the 16 shipped (kernel, arch)
+    points (``points=``, CDCL, a fresh cache) on min(8, CPUs) worker
+    processes forked after CUDA is up: 16 of 16 ``ok``, no failure, the
+    shipped II, and each mapping equal to the shipped artifact's or, where
+    not, to the parent's own solve on the grid as a worker receives it
+    (pickled: ``PEGrid`` neighbour sets come back in another iteration
+    order, which the encoder follows, in both packages; ROADMAP.md
+    section 3); every fleet bitstream fuzzed ``ok`` on the card over 2048
+    memories.  Then the same call again answers all 16 from the cache.
+    Returns the fleet's results by kernel and the run_cycles launches of
+    the fuzz check."""
+    import multiprocessing
+    import pickle
+
+    from repro_torch.cgra.artifact import ARTIFACT_ROOT, Artifact
+    from repro_torch.fuzz.corpus import make_corpus
+    from repro_torch.fuzz.engine import fuzz_program
+    from repro_torch.kernels.pe_array import cycle_step, run_cycles
+    from repro_torch.toolchain import Toolchain
+
+    kernels = [a.kernel for a in artifacts]
+    grids = ["4x4", "3x3"]
+    points = [(a.kernel, grids.index(a.arch)) for a in artifacts]
+    jobs = min(8, os.cpu_count() or 1)
+    cache = fresh_cache("fleet")
+    tc = Toolchain("4x4", map_config(), cache=cache)
+    cycle_step.launches = run_cycles.launches = 0
+    t0 = time.monotonic()
+    cold = tc.compile_many(kernels, grids, jobs=jobs, points=points)
+    cold_s = time.monotonic() - t0
+    t1 = time.monotonic()
+    warm = tc.compile_many(kernels, grids, jobs=jobs, points=points)
+    warm_s = time.monotonic() - t1
+    check(run_cycles.launches == cycle_step.launches == 0,
+          "the compile fleet launched a kernel")
+    as_shipped, as_worker = [], []
+    for cr, again, art in zip(cold, warm, artifacts):
+        check((cr.kernel, cr.arch or cr.size) == (art.kernel, art.arch),
+              f"fleet row {cr.kernel}@{cr.size} for {art.kernel}@{art.arch}")
+        check(cr.ok and cr.failure is None and not cr.cache_hit
+              and not cr.map_result.validation_errors,
+              f"fleet {cr.kernel}: {cr.status} {cr.error} {cr.failure}")
+        fresh = Artifact.from_mapping(cr.program.builder,
+                                      cr.map_result.mapping, arch=art.arch)
+        shipped = json.loads(
+            (ARTIFACT_ROOT / art.arch / f"{art.kernel}.json").read_text())
+        check(cr.ii == shipped["ii"],
+              f"fleet {cr.kernel}: II {cr.ii} != shipped {shipped['ii']}")
+        if fresh.to_dict() == shipped:
+            as_shipped.append(cr.kernel)
+        else:
+            grid = pickle.loads(pickle.dumps(cr.map_result.mapping.grid))
+            own = Toolchain(grid, map_config()).map(cr.kernel)
+            check(own.mapping.to_dict() == cr.map_result.mapping.to_dict(),
+                  f"fleet {cr.kernel}: mapping differs from the shipped one "
+                  f"and from the parent's solve on the worker's grid")
+            as_worker.append(cr.kernel)
+        check(again.ok and again.cache_hit and again.ii == cr.ii,
+              f"fleet {cr.kernel}: second call {again.status}, hit "
+              f"{again.cache_hit}")
+        rep = fuzz_program(fresh, make_corpus(fresh, MAIN_MEMORIES, seed=0),
+                           batch=MAIN_BATCH, device=device)
+        check(rep.status == "ok" and rep.failing == [],
+              f"fleet {cr.kernel}: fuzz {rep.status} {rep.mismatches[:2]}")
+    runs = run_cycles.launches
+    chunks = -(-MAIN_MEMORIES // MAIN_BATCH)
+    check(runs == len(cold) * chunks and cycle_step.launches == 0,
+          f"fleet fuzz check launched run_cycles {runs} times")
+    emit({"phase": "fleet", "points": len(cold), "ok": len(cold),
+          "ii_equal_to_shipped": len(cold),
+          "mapping_equal_to_shipped": as_shipped,
+          "mapping_equal_to_worker_grid_solve": as_worker,
+          "fuzz_ok": len(cold), "run_cycles_launches": runs, "jobs": jobs,
+          "cpu_count": os.cpu_count(), "wall_seconds": round(cold_s, 3),
+          "map_seconds_summed": round(sum(c.map_time_s for c in cold), 3),
+          "warm_cache_hits": sum(c.cache_hit for c in warm),
+          "warm_wall_seconds": round(warm_s, 3),
+          "start_method": multiprocessing.get_start_method()})
+    return {cr.kernel: cr for cr in cold}, runs
+
+
+def race_phase(device, seq_seconds):
+    """Phase 7b: fir4 and stencil3 at 4x4 raced with ``RACE_STRATEGY`` on
+    ``RACE_JOBS`` workers: each ``mapped`` at its shipped II, its
+    bitstream fuzzed over 2048 memories on the card ``ok``; race wall
+    seconds beside phase ``map``'s sequential seconds.  Then gsm with
+    ``portfolio:auto`` (z3 where installed) must come out ``ok``.
+    Returns the launches of run_cycles over the phase."""
+    from repro_torch.cgra.artifact import Artifact, load_artifact
+    from repro_torch.core.backends import parse_portfolio
+    from repro_torch.fuzz.corpus import make_corpus
+    from repro_torch.fuzz.engine import fuzz_program
+    from repro_torch.kernels.pe_array import cycle_step, run_cycles
+    from repro_torch.toolchain import Toolchain
+
+    cases = [(k, RACE_STRATEGY) for k in RACE_KERNELS] + \
+        [("gsm", "portfolio:auto")]
+    cycle_step.launches = run_cycles.launches = 0
+    for kernel, strategy in cases:
+        shipped = load_artifact("4x4", kernel)
+        tc = Toolchain("4x4", map_config(backend="auto", strategy=strategy))
+        prog = tc.program(kernel)
+        t0 = time.monotonic()
+        res = tc.map(prog, jobs=RACE_JOBS)
+        race_s = time.monotonic() - t0
+        check(res.status == "mapped" and res.strategies_raced >= 2,
+              f"race {kernel} ({strategy}): {res.status}, "
+              f"{res.strategies_raced} raced")
+        if strategy == RACE_STRATEGY:
+            check(res.ii == shipped.asm.ii,
+                  f"race {kernel}: II {res.ii} != shipped {shipped.asm.ii}")
+        art = Artifact.from_mapping(prog.builder, res.mapping, arch="4x4")
+        rep = fuzz_program(art, make_corpus(art, MAIN_MEMORIES, seed=0),
+                           batch=MAIN_BATCH, device=device)
+        check(rep.status == "ok" and rep.failing == [] and
+              rep.backend == "cuda",
+              f"race {kernel}: fuzz {rep.status} {rep.mismatches[:2]}")
+        emit({"phase": "race", "kernel": kernel, "strategy": strategy,
+              "roster": [s.name for s in
+                         parse_portfolio(strategy).available().strategies],
+              "jobs": RACE_JOBS, "status": res.status, "ii": res.ii,
+              "shipped_ii": shipped.asm.ii, "winner": res.winner,
+              "strategies_raced": res.strategies_raced,
+              "cancelled_after_s": res.cancelled_after_s,
+              "race_seconds": round(race_s, 3),
+              "sequential_map_seconds": seq_seconds.get(kernel),
+              "fuzz": rep.status, "memories": rep.memories})
+    steps, runs = cycle_step.launches, run_cycles.launches
+    chunks = -(-MAIN_MEMORIES // MAIN_BATCH)
+    check(runs == len(cases) * chunks and steps == 0,
+          f"race phase launched run_cycles {runs}, cycle_step {steps} times")
+    return runs
+
+
+def fleet_chaos_phase(fleet_rows):
+    """Phase 7c: ``REPRO_CHAOS`` crashes every worker's first attempt on
+    a two-point ``compile_many`` forked after CUDA is up: both points
+    heal on the retry, their failure recorded as a worker crash, at the
+    II of the clean fleet run."""
+    from repro_torch.kernels.pe_array import run_cycles
+    from repro_torch.toolchain import FailureKind, Toolchain
+    from repro_torch.toolchain.chaos import ENV_KEY, ChaosSpec
+
+    kernels = ["gsm", "dotprod"]
+    spec = ChaosSpec(seed=0, rate=1.0, kinds=("crash",), attempts=(0,))
+    os.environ[ENV_KEY] = spec.to_json()
+    run_cycles.launches = 0
+    t0 = time.monotonic()
+    try:
+        rows = Toolchain("4x4", map_config()).compile_many(kernels, jobs=2)
+    finally:
+        del os.environ[ENV_KEY]
+    wall = time.monotonic() - t0
+    check(run_cycles.launches == 0, "the chaos fleet launched a kernel")
+    for cr in rows:
+        check(cr.ok and cr.retries == 1
+              and cr.failure_kind == FailureKind.WORKER_CRASH
+              and cr.ii == fleet_rows[cr.kernel].ii,
+              f"chaos {cr.kernel}: {cr.status} retries {cr.retries} "
+              f"failure {cr.failure} II {cr.ii}")
+    emit({"phase": "fleet_chaos", "points": len(rows), "healed": len(rows),
+          "failure_kinds": [cr.failure_kind for cr in rows],
+          "messages": [cr.failure["message"] for cr in rows],
+          "iis": [cr.ii for cr in rows], "seconds": round(wall, 3)})
 
 
 def stacked_main_path(artifacts, single_reports, device) -> int:
@@ -1042,9 +1311,13 @@ def main() -> int:
     fused_err = max(artifacts_vs_plain(device, artifacts),
                     run_cycles_vs_plain(device))
     stacked_err = stacked_vs_plain(device)
-    map_phase(artifacts, device)
+    seq_seconds = map_phase(artifacts, device)
     cosim_runs = cosim_phase(device)
-    steps, runs, reports = main_path(artifacts, device)
+    cache = fresh_cache("main_path")
+    t0 = time.monotonic()
+    steps, runs, reports, made = main_path(artifacts, device, cache)
+    warm_runs = main_path_warm(artifacts, device, cache, reports, made,
+                               time.monotonic() - t0)
     stacked_runs = stacked_main_path(artifacts, reports, device)
     activity_phase(reports)
     activity_cost(artifacts, device)
@@ -1054,6 +1327,9 @@ def main() -> int:
     step_times = timing(device)
     fused_times = program_timing(device, step_times)
     stacked_times = stacked_timing(device, artifacts)
+    fleet_rows, fleet_runs = fleet_phase(artifacts, device)
+    race_runs = race_phase(device, seq_seconds)
+    fleet_chaos_phase(fleet_rows)
 
     def line(name, launches, err, ms, plain_ms, bound_ms,
              replaces="src/repro/kernels/pe_array.py:67", **extra):
@@ -1069,10 +1345,13 @@ def main() -> int:
     emit({"kernels": [
         line("pe_array.cycle_step", steps, step_err, step_ms, step_plain_ms,
              step_bound_ms),
-        line("pe_array.run_cycles", runs + cosim_runs, fused_err,
-             *fused_times[MAIN_BATCH],
+        line("pe_array.run_cycles",
+             runs + cosim_runs + warm_runs + fleet_runs + race_runs,
+             fused_err, *fused_times[MAIN_BATCH],
              launches_by_path={"fuzz main path": runs,
-                               "cosim": cosim_runs}),
+                               "cosim": cosim_runs,
+                               "fuzz main path, warm cache": warm_runs,
+                               "fleet": fleet_runs, "race": race_runs}),
         line("pe_array.run_cycles (stacked)", stacked_runs,
              max(stacked_err, stacked_times[0]), *stacked_times[1:],
              replaces="src/repro/fuzz/engine.py:508")]})

@@ -8,13 +8,16 @@ PyTorch on the CPU:
 
 * :mod:`repro_torch.sat`       CNF/Tseitin and the CDCL solver
 * :mod:`repro_torch.core`      DFG, KMS, SAT encoding, solver sessions,
-  the II ladder with CEGAR, register allocation
+  the II ladder with CEGAR, the portfolio racer, the cross-point fact
+  store, register allocation
 * :mod:`repro_torch.archspec`  declarative architectures and presets
 * :mod:`repro_torch.cgra`      ISA, grid, CIL programs and the kernel
   registry, the assembler, artifacts, simulate/verify, the latency/energy
   model
-* :mod:`repro_torch.toolchain` the single-point compilation session;
+* :mod:`repro_torch.toolchain` the compilation session, ``compile_many``
+  over the supervised worker fleet (retries, degradation, chaos);
   ``python -m repro_torch map``
+* :mod:`repro_torch.dse`       the content-addressed mapping cache
 * :mod:`repro_torch.kernels`   the cycle step and the whole-program run
   (kernels + plain versions) and ``run_program``
 * :mod:`repro_torch.fuzz`      seeded corpora, the batched oracle, the

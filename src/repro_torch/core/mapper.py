@@ -18,16 +18,15 @@ Python-side encoding/CNF construction too (via a deadline threaded into
 :class:`KMSEncoding`), not just solver time.
 
 The per-II search lives in :func:`attempt_ii` — one (II, strategy) CEGAR
-loop returning a typed :class:`IIOutcome` — walked by the sequential
-ladder here.
+loop returning a typed :class:`IIOutcome` — consumed by both the
+sequential ladder here and the portfolio racer
+(:mod:`repro_torch.core.portfolio`).  A :class:`MapperConfig` with a
+``strategy`` spec that races multiple strategies or speculates on the II
+ladder dispatches to the racer; the legacy ``backend``/``amo`` pair (and
+any single sequential strategy) stays on the sequential path.
 
-A copy of ``src/repro/core/mapper.py`` without the portfolio racer
-(``src/repro/core/portfolio.py``), the cross-point fact store and the
-mapping cache (``map_dfg_cached``), which ``ROADMAP.md`` lists as still to
-port: a ``strategy`` spec that races several strategies or speculates on
-the II ladder raises :class:`NotImplementedError` instead of falling back
-to the sequential ladder.  Any single sequential strategy (and the legacy
-``backend``/``amo`` pair) maps exactly as the JAX package does.
+A copy of ``src/repro/core/mapper.py``: every strategy, the fact seed and
+the mapping cache map exactly as the JAX package does.
 """
 from __future__ import annotations
 
@@ -392,19 +391,29 @@ def _merge_outcome(result: MapResult, out: IIOutcome) -> None:
 def map_dfg(dfg: DFG, grid: PEGrid,
             config: Optional[MapperConfig] = None,
             ii_start: Optional[int] = None,
-            assemble_check=None) -> MapResult:
+            assemble_check=None, *,
+            facts_seed: Optional[Dict] = None,
+            jobs: Optional[int] = None) -> MapResult:
     """``assemble_check(mapping)``: optional CEGAR oracle — returns None if
     the mapping survives code generation, else a placement-triple list to
     forbid (e.g. a prologue-clobber counterexample from the bitstream
     assembler); the same II is re-solved with the combination blocked.
+
+    ``facts_seed`` (optional, from :mod:`repro_torch.core.facts`): lifted
+    cross-point facts — ``{"blocked": [...combos...], "unsat_iis": [...],
+    "ii_cap": int | None}`` — that pre-seed the search.  ``jobs`` bounds
+    the portfolio racer's worker processes (ignored on the sequential
+    path; ``None`` lets the racer pick).
     """
     cfg = config or MapperConfig()
     spec = cfg.portfolio().available()
     if not spec.is_single_sequential:
-        raise NotImplementedError(
-            f"strategy {spec.to_compact()!r} races strategies or speculates "
-            f"on II; the portfolio racer is not ported yet (ROADMAP.md, "
-            f"queue 1): give a single sequential strategy")
+        from .portfolio import map_dfg_portfolio
+
+        return map_dfg_portfolio(dfg, grid, cfg, spec,
+                                 ii_start=ii_start,
+                                 assemble_check=assemble_check,
+                                 facts_seed=facts_seed, jobs=jobs)
     strategy = spec.strategies[0]
     with obs_trace.span("mapper.ladder", backend=strategy.backend) as lsp:
         t_start = time.monotonic()
@@ -417,10 +426,26 @@ def map_dfg(dfg: DFG, grid: PEGrid,
                            backend=strategy.backend)
 
         blocked: List = []
-        while ii <= cfg.ii_max:
+        known_unsat: set = set()
+        ii_max = cfg.ii_max
+        if facts_seed:
+            blocked.extend(facts_seed.get("blocked", ()))
+            known_unsat = set(facts_seed.get("unsat_iis", ()))
+            cap = facts_seed.get("ii_cap")
+            if cap is not None:
+                ii_max = min(ii_max, cap)
+            result.facts_used = len(blocked) + len(known_unsat) + \
+                (1 if cap is not None else 0)
+            lsp.event("facts.seeded", blocked=len(blocked),
+                      unsat_iis=len(known_unsat), ii_cap=cap)
+        while ii <= ii_max:
             if deadline is not None and time.monotonic() > deadline:
                 result.status = "timeout"
                 break
+            if ii in known_unsat:
+                lsp.event("facts.skip_ii", ii=ii)
+                ii += 1  # lifted UNSAT-at-II fact: skip without solving
+                continue
             out = attempt_ii(dfg, grid, ms, ii, cfg, strategy, blocked,
                              assemble_check=assemble_check,
                              deadline=deadline)
@@ -510,3 +535,34 @@ def mapping_cache_key(dfg: DFG, grid: PEGrid,
         payload["ii_start"] = ii_start
     blob = json.dumps(payload, sort_keys=True, separators=(",", ":"))
     return hashlib.sha256(blob.encode("utf-8")).hexdigest()
+
+
+def map_dfg_cached(dfg: DFG, grid: PEGrid,
+                   config: Optional[MapperConfig] = None,
+                   cache=None, assemble_check=None,
+                   cache_extra: str = "",
+                   ii_start: Optional[int] = None,
+                   facts_seed: Optional[Dict] = None,
+                   jobs: Optional[int] = None):
+    """Cache-aware ``map_dfg``: returns ``(MapResult, cache_hit)``.
+
+    ``cache`` is any object with ``get(key) -> Optional[dict]`` /
+    ``put(key, dict)`` (see :class:`repro_torch.dse.cache.MappingCache`).
+    Timeout results are never stored so a rerun with the same budget gets
+    another chance on a less-loaded machine.  A result produced under a
+    ``facts_seed`` is never stored either: lifted facts are session-local
+    context the content-addressed key cannot see.
+    """
+    key = None
+    if cache is not None:
+        key = mapping_cache_key(dfg, grid, config, extra=cache_extra,
+                                ii_start=ii_start)
+        stored = cache.get(key)
+        if stored is not None:
+            return MapResult.from_dict(dfg, grid, stored), True
+    res = map_dfg(dfg, grid, config, ii_start=ii_start,
+                  assemble_check=assemble_check,
+                  facts_seed=facts_seed, jobs=jobs)
+    if cache is not None and res.status != "timeout" and not facts_seed:
+        cache.put(key, res.to_dict())
+    return res, False

@@ -14,8 +14,8 @@ checked against the vectorized oracle, with its switching activity and
 energy delta.  ``--shrink`` turns mismatches into single-memory
 reproducer JSONs under ``--failures-dir``.  The JSON digest has the fields
 of ``python -m repro fuzz --json``; ``backend`` is ``cuda`` on the card
-and ``ref`` on the CPU.  The mapping cache (``--cache-dir``) is not ported
-yet (``ROADMAP.md``).
+and ``ref`` on the CPU.  ``--cache-dir`` reads and writes the
+content-addressed mapping cache, which both packages share.
 """
 from __future__ import annotations
 
@@ -95,6 +95,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="total mapping budget per kernel in seconds "
                          "(default 120)")
     ap.add_argument("--ii-max", type=int, default=32)
+    ap.add_argument("--cache-dir", default=None,
+                    help="content-addressed mapping cache")
     ap.add_argument("--strict", action="store_true",
                     help="also exit non-zero on unmapped/timed-out kernels "
                          "(default: only mismatches and engine errors fail "
@@ -122,6 +124,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             rep = fuzz_kernel(name, arch=arch, memories=args.memories,
                               batch=args.batch, seed=args.seed,
                               shrink=args.shrink, config=cfg,
+                              cache=args.cache_dir,
                               failures_dir=args.failures_dir,
                               strategies=strategies, device=args.device)
             reports.append(rep)

@@ -357,7 +357,7 @@ def _backend(dev: torch.device) -> str:
 
 def fuzz_kernel(name: str, arch: str = "4x4", memories: int = 1024,
                 batch: int = 1024, seed: int = 0, shrink: bool = False,
-                config=None,
+                config=None, cache=None,
                 failures_dir: str = "results/fuzz_failures",
                 strategies: Optional[Sequence[str]] = None,
                 device="cuda") -> FuzzReport:
@@ -366,7 +366,9 @@ def fuzz_kernel(name: str, arch: str = "4x4", memories: int = 1024,
     (on mismatch, with ``shrink``) shrink + divergence replay +
     reproducer JSON under ``failures_dir``.  A kernel that does not map
     comes back ``unmapped`` or ``timeout``; nothing else stands in for
-    its mapping."""
+    its mapping.  ``cache`` (a directory or a
+    :class:`~repro_torch.dse.cache.MappingCache`) answers a repeat mapping
+    from disk, as ``Toolchain(cache=)`` does."""
     from ..core.mapper import MapperConfig
     from ..toolchain.session import Toolchain
     from .triage import triage_failure
@@ -374,7 +376,7 @@ def fuzz_kernel(name: str, arch: str = "4x4", memories: int = 1024,
     dev = resolve_device(device)
     cfg = config or MapperConfig(per_ii_timeout_s=60.0,
                                  total_timeout_s=120.0, ii_max=32)
-    tc = Toolchain(arch, cfg)
+    tc = Toolchain(arch, cfg, cache=cache)
     arch_name = tc.arch or f"{tc.grid.spec.rows}x{tc.grid.spec.cols}"
     prog = tc.program(name)
     t0 = time.monotonic()

@@ -349,3 +349,72 @@ def test_cosim_without_the_kernel_library_raises(cuda, monkeypatch):
         cosimulate(TRACED_KERNELS["dotprod"],
                    config=MapperConfig(backend="cdcl"), device=cuda)
     assert run_cycles.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# the mapping cache, the fleet and the racer after CUDA is up: their
+# workers fork from a process that has launched kernels, and map on the
+# host without touching the device
+# ---------------------------------------------------------------------------
+
+CDCL_BUDGET = dict(backend="cdcl", per_ii_timeout_s=60.0,
+                   total_timeout_s=120.0, ii_max=32)
+
+
+def _launch_first(device) -> None:
+    """One whole-program launch in this process, before any fork."""
+    before = run_cycles.launches
+    rep = fuzz_program(load_artifact("4x4", "bitcount"),
+                       make_corpus("bitcount", 64), batch=64, device=device)
+    torch.cuda.synchronize()
+    assert rep.status == "ok" and run_cycles.launches == before + 1
+
+
+def test_compile_many_fleet_after_a_launch(cuda):
+    from repro_torch.toolchain import Toolchain
+
+    _launch_first(cuda)
+    kernels = ["gsm", "dotprod", "saxpy", "relu_clamp"]
+    res = Toolchain("4x4", MapperConfig(**CDCL_BUDGET)).compile_many(
+        kernels, jobs=2)
+    assert [cr.kernel for cr in res] == kernels
+    for cr in res:
+        assert cr.ok and cr.failure is None and cr.retries == 0, cr.error
+        assert cr.ii == load_artifact("4x4", cr.kernel).asm.ii
+
+
+def test_race_after_a_launch_maps_at_the_sequential_ii(cuda):
+    """A two-worker race of gsm@4x4 commits the sequential II (the shipped
+    artifact's), and its bitstream fuzzes ``ok`` on the card."""
+    from repro_torch.cgra.artifact import Artifact
+    from repro_torch.toolchain import Toolchain
+
+    _launch_first(cuda)
+    tc = Toolchain("4x4", MapperConfig(
+        strategy="portfolio:cdcl-seq+cdcl-pair", per_ii_timeout_s=60.0,
+        total_timeout_s=120.0, ii_max=32))
+    prog = tc.program("gsm")
+    res = tc.map(prog, jobs=2)
+    assert res.status == "mapped" and res.strategies_raced >= 2
+    assert res.ii == load_artifact("4x4", "gsm").asm.ii
+    art = Artifact.from_mapping(prog.builder, res.mapping, arch="4x4")
+    rep = fuzz_program(art, make_corpus(art, 2048), batch=1024, device=cuda)
+    assert rep.status == "ok" and rep.failing == [], rep.mismatches[:2]
+
+
+def test_fuzz_kernel_cache_cold_then_warm_on_the_card(cuda, tmp_path):
+    from repro_torch.dse import MappingCache
+
+    _launch_first(cuda)
+    cache = MappingCache(str(tmp_path / "cache"))
+    reps = [fuzz_kernel("gsm", "4x4", memories=2048, batch=1024,
+                        config=MapperConfig(**CDCL_BUDGET), cache=cache,
+                        device=cuda) for _ in range(2)]
+    assert cache.stats()["hits"] == 1 and len(cache) == 1
+    docs = [r.to_dict() for r in reps]
+    for doc in docs:
+        for key in ("map_time_s", "exec_time_s", "oracle_time_s",
+                    "mem_rate"):
+            doc.pop(key)
+    assert docs[0] == docs[1]
+    assert reps[0].status == "ok" and reps[0].backend == "cuda"

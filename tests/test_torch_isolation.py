@@ -1,6 +1,7 @@
 """repro_torch stands alone: no file of the port imports ``jax`` or
-``repro``, the package maps, runs and co-simulates a traced kernel with
-both blocked, and an entry point asked for the card on a host without one
+``repro``, the package maps (also through the cache, the compile fleet and
+a two-worker race), runs and co-simulates a traced kernel with both
+blocked, and an entry point asked for the card on a host without one
 raises instead of using the CPU."""
 import ast
 import os
@@ -34,7 +35,7 @@ def test_no_port_file_imports_jax_or_repro(path):
     assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"
 
 
-def test_port_runs_with_jax_and_repro_blocked():
+def test_port_runs_with_jax_and_repro_blocked(tmp_path):
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -58,10 +59,18 @@ def test_port_runs_with_jax_and_repro_blocked():
         "from repro_torch.frontend import TRACED_KERNELS, cosimulate\n"
         "rep = cosimulate(TRACED_KERNELS['dotprod'], seeds=2, device='cpu')\n"
         "assert rep.status == 'ok', rep\n"
+        "from repro_torch.core import MapperConfig\n"
+        "rows = Toolchain('2x2', cache=sys.argv[1]).compile_many(\n"
+        "    ['bitcount', 'reversebits'], jobs=2)\n"
+        "assert all(r.ok and r.failure is None for r in rows), rows\n"
+        "race = Toolchain('2x2', MapperConfig(\n"
+        "    strategy='portfolio:cdcl-seq+cdcl-pair')).map('gsm', jobs=2)\n"
+        "assert race.status == 'mapped' and race.strategies_raced >= 2\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok', sim.total_rows)\n")
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "c")],
+                          capture_output=True,
                           text=True, timeout=120,
                           env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert proc.returncode == 0, proc.stderr
