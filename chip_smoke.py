@@ -84,7 +84,24 @@ per line:
    c. chaos: ``REPRO_CHAOS`` crashes each worker's first attempt on a
       two-point ``compile_many``; both heal on the retry at the clean
       fleet's II;
-8. the kernels line (the whole-program run's launches summed over the
+8. the paper's design-space analysis (the sweep phases pin CDCL, each
+   into a fresh cache):
+   a. ``sweep_smoke``: the port's ``sweep --smoke`` twice, its Pareto bytes
+      equal to the committed ``results/BENCH_dse.json`` (never written),
+      the second pass 12 of 12 cache hits;
+   b. ``sweep``: the size ladder 2x2 to 6x6 over the registry kernels but
+      sha and sha2 (``SWEEP_CUT``), traced, on min(8, CPUs) workers; each
+      grid shape new to the card held bit-equal to the plain loop, then
+      every ``mapped`` point fuzzed on the card from the sweep's cache
+      (every map a hit), ``ok`` but for ``REFERENCE_MISMATCHES`` (mappings
+      the JAX package gets wrong too, whose mismatch must equal the CPU
+      path's), one line a point, then the Pareto section;
+   c. ``heuristic``: ``map_dfg_heuristic`` on Fig. 7's handwritten kernels
+      at 2x2 to 5x5 beside the sweep's SAT rows; every mapping validates,
+      every routing-free one runs on the card with no mismatch;
+   d. ``trace``: the sweep's trace validates, its roots at least 95%
+      attributed, and the ten span names with the most seconds;
+9. the kernels line (the whole-program run's launches summed over the
    paths that run it, and given per path), then the device line last.
 
 Any failure raises and exits non-zero.  Without CUDA it exits 1 and
@@ -129,6 +146,33 @@ CACHE_ROOT = ROOT / "build" / "chip_smoke_cache"
 RACE_STRATEGY = "portfolio:cdcl-seq+cdcl-pair"
 RACE_KERNELS = ("fir4", "stencil3")
 RACE_JOBS = 4
+#: phase ``sweep`` is the paper's size ladder (``DEFAULT_SIZES``, 2x2 to
+#: 6x6) over every registry kernel but these two: under the pure-Python
+#: CDCL they do not map within a sweep point's 60 s budget
+SWEEP_CUT = ("sha", "sha2")
+#: swept points that the JAX package's mapper gets wrong too: both
+#: packages map them to the same words, which execute wrong on every
+#: simulator (a loop-carried operand handed through a neighbour's OUT
+#: register is clobbered before its first read, and the assembler oracle
+#: does not see it; ROADMAP.md section 3).  On the card each must give
+#: exactly the CPU path's mismatch; every other mapped point ``ok``
+REFERENCE_MISMATCHES = (("popcount", "2x2"), ("popcount", "2x3"))
+#: memories of such a point that the CPU path runs to compare verdicts
+REFERENCE_CPU_MEMORIES = 256
+#: grid shapes whose assembled programs earlier phases run on the card;
+#: each other swept shape is first held to the plain loop
+SHIPPED_SHAPES = ("3x3", "4x4")
+#: ``benchmarks/fig7_table4.py``: its handwritten kernels less
+#: ``SWEEP_CUT``, its sizes and its heuristic settings
+HEURISTIC_KERNELS = ("reversebits", "bitcount", "sqrt", "stringsearch", "gsm")
+HEURISTIC_SIZES = ("2x2", "3x3", "4x4", "5x5")
+HEURISTIC_CONFIG = dict(seed=0, tries_per_ii=10, ii_max=40,
+                        total_timeout_s=45)
+#: root coverage floor of phase ``trace``, as ``trace check
+#: --min-attribution 0.95`` enforces it
+TRACE_FLOOR = 0.95
+#: the sweep phases' outputs and trace (under build/, which git ignores)
+SWEEP_ROOT = ROOT / "build" / "chip_smoke_sweep"
 
 
 def emit(obj) -> None:
@@ -170,14 +214,20 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def fresh_dir(path: Path) -> Path:
+    """``path``, emptied."""
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
+
+
 def fresh_cache(name: str):
     """An empty ``MappingCache`` under ``CACHE_ROOT``."""
-    import shutil
     from repro_torch.dse import MappingCache
 
-    path = CACHE_ROOT / name
-    shutil.rmtree(path, ignore_errors=True)
-    return MappingCache(str(path))
+    return MappingCache(str(fresh_dir(CACHE_ROOT / name)))
 
 
 @contextlib.contextmanager
@@ -831,6 +881,359 @@ def fleet_chaos_phase(fleet_rows):
           "iis": [cr.ii for cr in rows], "seconds": round(wall, 3)})
 
 
+def sweep_smoke_phase() -> None:
+    """Phase 8a: ``run_smoke``, the port's ``sweep --smoke``
+    (``SMOKE_KERNELS`` x ``SMOKE_SIZES``, CDCL, swept twice) into a fresh
+    cache: its Pareto bytes equal those of the committed
+    ``results/BENCH_dse.json``, which is read and never written, and the
+    second pass answers all 12 points from the cache."""
+    from repro_torch.dse.cli import pareto_bytes, run_smoke
+    from repro_torch.kernels.pe_array import run_cycles
+
+    committed = ROOT / "results" / "BENCH_dse.json"
+    before = committed.read_bytes()
+    jobs = min(8, os.cpu_count() or 1)
+    out = fresh_dir(SWEEP_ROOT / "smoke") / "BENCH_dse.json"
+    run_cycles.launches = 0
+    t0 = time.monotonic()
+    # run_smoke prints a BENCH line a point; keep them beside its output
+    with open(out.with_suffix(".log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        doc = run_smoke(out=str(out), jobs=jobs,
+                        cache_dir=str(fresh_dir(CACHE_ROOT / "sweep_smoke")))
+    wall = time.monotonic() - t0
+    check(run_cycles.launches == 0, "the smoke sweep launched a kernel")
+    points = len(doc["points"])
+    check(points == 12 and doc["errors"] == 0,
+          f"smoke sweep: {points} points, {doc['errors']} errors")
+    check(doc["cache"]["hits"] == points and doc["cache"]["misses"] == 0,
+          f"smoke sweep second pass: cache {doc['cache']}")
+    check(pareto_bytes(doc) == pareto_bytes(json.loads(before)),
+          "smoke sweep: Pareto bytes differ from results/BENCH_dse.json")
+    check(committed.read_bytes() == before,
+          "smoke sweep rewrote results/BENCH_dse.json")
+    emit({"phase": "sweep_smoke", "points": points,
+          "second_pass_hits": doc["cache"]["hits"],
+          "pareto_equal_to_committed": True,
+          "pareto_identical_on_repeat": doc["repeat_check"][
+              "pareto_identical"],
+          "summary": doc["pareto"]["summary"], "jobs": jobs,
+          "first_pass_seconds": doc["repeat_check"]["first_run_wall_s"],
+          "seconds": round(wall, 3)})
+
+
+def shape_vs_plain(row, cfg, cache_dir, device) -> int:
+    """Phase 8b, before the first fuzz of a grid shape new to the card:
+    the swept artifact of ``row`` (replayed from the sweep's cache) through
+    ``run_program`` at B=1024 against the plain loop ``run_cycles_ref`` on
+    the card, trace and final state bit-equal.  Returns the largest
+    absolute difference."""
+    import numpy as np
+    import torch
+    from repro_torch.cgra.arch import neighbor_table
+    from repro_torch.cgra.artifact import Artifact
+    from repro_torch.cgra.simulator import preset_state
+    from repro_torch.dse import MappingCache
+    from repro_torch.fuzz.corpus import make_corpus
+    from repro_torch.kernels.ops import decode_fields, run_program
+    from repro_torch.kernels.ref import run_cycles_ref
+    from repro_torch.toolchain import Toolchain
+
+    size = row["size"]
+    tc = Toolchain(size, cfg.mapper_config(), cache=MappingCache(cache_dir))
+    prog = tc.program(row["kernel"])
+    res = tc.map(prog)
+    check(tc.last_cache_hit and res.mapping is not None
+          and res.mapping.ii == row["ii"],
+          f"{row['kernel']}@{size}: not replayed from the sweep's cache")
+    art = Artifact.from_mapping(prog.builder, res.mapping, arch=size)
+    mems = make_corpus(art, MAIN_BATCH, seed=7)
+    fields = decode_fields(art.asm.words(), device)
+    state = preset_state(art.asm, art.grid.num_pes, mems, MAIN_BATCH, device)
+    nbr = neighbor_table(art.grid)
+    final, outs = run_program(fields, state, nbr, device)
+    plain, plain_outs = run_cycles_ref(
+        fields, state, torch.as_tensor(np.asarray(nbr, np.int32),
+                                       device=device))
+    diffs = {"out trace": max_diff(outs, plain_outs)}
+    diffs.update((name, max_diff(a, b))
+                 for name, a, b in zip(plain._fields, final, plain))
+    worst = max(diffs.values())
+    check(worst == 0, f"{art.kernel}@{size}: kernel differs from the plain "
+                      f"loop {diffs}")
+    emit({"phase": "sweep_shape_vs_plain", "kernel": art.kernel,
+          "size": size, "P": art.grid.num_pes, "rows": art.asm.total_rows,
+          "batch": MAIN_BATCH, "neighbors": nbr, "max_abs_err": worst})
+    return worst
+
+
+def sweep_phase(device):
+    """Phase 8b: the paper's design-space sweep at full width, the size
+    ladder ``DEFAULT_SIZES`` (2x2 to 6x6) over the registry kernels less
+    ``SWEEP_CUT``, through ``run_sweep`` (CDCL, the sweep's own budgets,
+    min(8, CPUs) workers forked after CUDA is up, a fresh cache) under
+    tracing.  Every ``mapped`` point is then fuzzed on the card through
+    ``fuzz_kernel`` from the sweep's cache (each map a hit), 2048 memories
+    in batches of 1024, every verdict ``ok`` but those of
+    ``REFERENCE_MISMATCHES``, whose mismatch must equal the CPU path's on
+    the same memories; each grid shape new to the card is first held to
+    the plain loop (``shape_vs_plain``).  Returns the sweep's rows, the
+    run_cycles launches of the fuzz runs, the largest kernel-vs-plain
+    difference and the trace directory."""
+    from repro_torch.dse import (DEFAULT_KERNELS, DEFAULT_SIZES,
+                                 MappingCache, SweepConfig, run_sweep)
+    from repro_torch.fuzz.corpus import make_corpus
+    from repro_torch.fuzz.engine import fuzz_kernel, fuzz_program
+    from repro_torch.kernels.pe_array import cycle_step, run_cycles
+    from repro_torch.obs import trace as obs_trace
+
+    kernels = tuple(k for k in DEFAULT_KERNELS if k not in SWEEP_CUT)
+    jobs = min(8, os.cpu_count() or 1)
+    cache_dir = str(fresh_dir(CACHE_ROOT / "sweep"))
+    trace_dir = fresh_dir(SWEEP_ROOT / "trace")
+    cfg = SweepConfig(kernels=kernels, sizes=DEFAULT_SIZES, backend="cdcl",
+                      jobs=jobs, cache_dir=cache_dir)
+    emit({"phase": "sweep_plan", "kernels": list(kernels),
+          "sizes": [f"{r}x{c}" for r, c in DEFAULT_SIZES],
+          "points": len(kernels) * len(DEFAULT_SIZES),
+          "cut": list(SWEEP_CUT),
+          "why_cut": "no mapping under pure-Python CDCL within a sweep "
+                     "point's budget", "backend": cfg.backend, "jobs": jobs,
+          "per_point_timeout_s": cfg.per_point_timeout_s,
+          "per_ii_timeout_s": cfg.per_ii_timeout_s, "ii_max": cfg.ii_max})
+    cycle_step.launches = run_cycles.launches = 0
+    obs_trace.enable(str(trace_dir))
+    t0 = time.monotonic()
+    try:
+        doc = run_sweep(cfg)
+    finally:
+        obs_trace.disable()
+    sweep_s = time.monotonic() - t0
+    check(run_cycles.launches == cycle_step.launches == 0,
+          "the sweep's mapping launched a kernel")
+    rows = doc["points"]
+    check(doc["errors"] == 0
+          and len(rows) == len(kernels) * len(DEFAULT_SIZES),
+          f"sweep: {doc['errors']} errors over {len(rows)} points")
+    mapped = [r for r in rows if r["status"] == "mapped"]
+    check(len(mapped) > 0, "sweep mapped no point")
+    worst, shapes = 0, {}
+    for row in mapped:
+        if row["size"] not in SHIPPED_SHAPES and row["size"] not in shapes:
+            shapes[row["size"]] = row["kernel"]
+            worst = max(worst, shape_vs_plain(row, cfg, cache_dir, device))
+    cache = MappingCache(cache_dir)
+    cycle_step.launches = run_cycles.launches = 0
+    t1 = time.monotonic()
+    verdicts = {}
+    for row in rows:
+        point = (row["kernel"], row["size"])
+        line = {"phase": "sweep_point", "kernel": row["kernel"],
+                "size": row["size"], "status": row["status"],
+                "ii": row["ii"], "mii": row.get("mii"),
+                "map_time_s": row["map_time_s"]}
+        if row["status"] == "mapped":
+            with recorded_artifacts() as made:
+                rep = fuzz_kernel(row["kernel"], arch=row["size"],
+                                  memories=MAIN_MEMORIES, batch=MAIN_BATCH,
+                                  seed=0, config=cfg.mapper_config(),
+                                  cache=cache, device=device)
+            want = "mismatch" if point in REFERENCE_MISMATCHES else "ok"
+            check(rep.status == want and rep.backend == "cuda"
+                  and rep.ii == row["ii"],
+                  f"sweep {row['kernel']}@{row['size']}: fuzz {rep.status} "
+                  f"(not {want}) II {rep.ii} {rep.mismatches[:2]}")
+            if want == "mismatch":
+                n = REFERENCE_CPU_MEMORIES
+                mems = make_corpus(row["kernel"], MAIN_MEMORIES, seed=0)[:n]
+                cpu = fuzz_program(made[row["kernel"]], mems, batch=n,
+                                   device="cpu")
+                check(cpu.status == "mismatch"
+                      and cpu.failing == [i for i in rep.failing if i < n]
+                      and cpu.mismatches == rep.mismatches,
+                      f"sweep {row['kernel']}@{row['size']}: the card's "
+                      f"mismatch differs from the CPU path's")
+                line.update(failing=len(rep.failing),
+                            failing_equal_to_cpu=n,
+                            mismatch=rep.mismatches[0])
+            verdicts[rep.status] = verdicts.get(rep.status, 0) + 1
+            line.update(latency_cycles=row["latency_cycles"],
+                        energy_nj=row["energy_nj"],
+                        activity_energy_nj=rep.energy["empirical_total_nj"],
+                        fuzz=rep.status, mem_rate=rep.mem_rate)
+        emit(line)
+    fuzz_s = time.monotonic() - t1
+    check(all(r["status"] == "mapped" for r in rows
+              if (r["kernel"], r["size"]) in REFERENCE_MISMATCHES),
+          "sweep: a point of REFERENCE_MISMATCHES did not map")
+    steps, runs = cycle_step.launches, run_cycles.launches
+    stats = cache.stats()
+    check(stats["hits"] == len(mapped) and stats["misses"] == 0,
+          f"sweep fuzz: cache {stats} for {len(mapped)} mapped points")
+    check(runs == len(mapped) * -(-MAIN_MEMORIES // MAIN_BATCH)
+          and steps == 0,
+          f"sweep fuzz launched run_cycles {runs}, cycle_step {steps} times")
+    pareto = doc["pareto"]
+    emit({"phase": "sweep_pareto", "summary": pareto["summary"],
+          "per_kernel": {k: {"retained_fraction": v["retained_fraction"],
+                             "pruned_fraction": v["pruned_fraction"],
+                             "runtime_front": v["runtime_front"],
+                             "compiler_front": v["compiler_front"]}
+                         for k, v in pareto["per_kernel"].items()}})
+    statuses = {}
+    for r in rows:
+        statuses[r["status"]] = statuses.get(r["status"], 0) + 1
+    emit({"phase": "sweep", "points": len(rows), "statuses": statuses,
+          "not_mapped": [f"{r['kernel']}@{r['size']} {r['status']}"
+                         for r in rows if r["status"] != "mapped"],
+          "fuzz_verdicts": verdicts,
+          "reference_mismatches": [f"{k}@{s}"
+                                   for k, s in REFERENCE_MISMATCHES],
+          "fuzz_cache_hits": stats["hits"],
+          "new_shapes_vs_plain": shapes, "run_cycles_launches": runs,
+          "jobs": jobs, "sweep_seconds": round(sweep_s, 3),
+          "sweep_wall_time_s": doc["wall_time_s"],
+          "map_seconds_summed": round(sum(r["map_time_s"] for r in rows), 3),
+          "fuzz_seconds": round(fuzz_s, 3)})
+    return rows, runs, worst, trace_dir
+
+
+def heuristic_phase(device, sweep_rows) -> int:
+    """Phase 8c: the paper's Fig. 7 / Table 4 on the card.  For each of
+    ``HEURISTIC_KERNELS`` at ``HEURISTIC_SIZES``, ``map_dfg_heuristic``
+    under ``HEURISTIC_CONFIG`` beside phase ``sweep``'s SAT row (no
+    mapping again); every heuristic mapping passes ``validate_mapping``,
+    and every routing-free one runs on the card over 2048 memories of its
+    corpus (two launches) with no mismatch.  Mappings with routing nodes
+    are counted, not run: their MOV nodes are not wired to the program's
+    source table.  SAT II <= heuristic II is counted, not asserted (it
+    fails on some random DFGs in the JAX package too).  Returns the
+    launches of run_cycles over the phase."""
+    from repro_torch.cgra.arch import make_grid
+    from repro_torch.cgra.artifact import Artifact
+    from repro_torch.cgra.registry import kernel_program
+    from repro_torch.core import (HeuristicConfig, map_dfg_heuristic,
+                                  validate_mapping)
+    from repro_torch.fuzz.corpus import make_corpus
+    from repro_torch.fuzz.engine import fuzz_program
+    from repro_torch.kernels.pe_array import cycle_step, run_cycles
+
+    sat = {(r["kernel"], r["size"]): r for r in sweep_rows}
+    tally = {"sat_better": 0, "equal": 0, "sat_worse": 0, "only_sat": 0,
+             "only_heuristic": 0, "neither": 0}
+    mapped = executed = routed = 0
+    cycle_step.launches = run_cycles.launches = 0
+    t0 = time.monotonic()
+    for kernel in HEURISTIC_KERNELS:
+        prog = kernel_program(kernel)
+        for size in HEURISTIC_SIZES:
+            rows, cols = map(int, size.split("x"))
+            t1 = time.monotonic()
+            res = map_dfg_heuristic(prog.build_dfg(), make_grid(rows, cols),
+                                    HeuristicConfig(**HEURISTIC_CONFIG))
+            heur_s = time.monotonic() - t1
+            s_row = sat[(kernel, size)]
+            line = {"phase": "heuristic_cell", "kernel": kernel, "size": size,
+                    "sat_status": s_row["status"], "sat_ii": s_row["ii"],
+                    "heuristic_status": res.status,
+                    "heuristic_ii": res.mapping.ii if res.mapping else None,
+                    "heuristic_seconds": round(heur_s, 4)}
+            if res.mapping is not None:
+                mapped += 1
+                errors = validate_mapping(res.mapping)
+                check(errors == [], f"heuristic {kernel}@{size}: {errors}")
+                line["routing_nodes"] = res.mapping.routing_nodes
+                if res.mapping.routing_nodes:
+                    routed += 1
+                else:
+                    art = Artifact.from_mapping(prog, res.mapping, arch=size)
+                    rep = fuzz_program(art, make_corpus(art, MAIN_MEMORIES,
+                                                        seed=0),
+                                       batch=MAIN_BATCH, device=device)
+                    check(rep.status == "ok" and rep.failing == []
+                          and rep.backend == "cuda",
+                          f"heuristic {kernel}@{size}: fuzz {rep.status} "
+                          f"{rep.mismatches[:2]}")
+                    executed += 1
+                    line.update(fuzz=rep.status, memories=rep.memories)
+            if s_row["ii"] is not None and res.mapping is not None:
+                d = s_row["ii"] - res.mapping.ii
+                tally["sat_better" if d < 0 else "sat_worse" if d > 0
+                      else "equal"] += 1
+            else:
+                tally["only_sat" if s_row["ii"] is not None
+                      else "only_heuristic" if res.mapping is not None
+                      else "neither"] += 1
+            emit(line)
+    steps, runs = cycle_step.launches, run_cycles.launches
+    check(runs == executed * -(-MAIN_MEMORIES // MAIN_BATCH) and steps == 0,
+          f"heuristic phase launched run_cycles {runs}, cycle_step {steps} "
+          f"times for {executed} runs")
+    emit({"phase": "heuristic", "cells": len(HEURISTIC_KERNELS)
+          * len(HEURISTIC_SIZES), "mapped": mapped, "validated": mapped,
+          "routing_free_run_ok": executed, "with_routing_not_run": routed,
+          "sat_vs_heuristic": tally, "run_cycles_launches": runs,
+          "seconds": round(time.monotonic() - t0, 3)})
+    return runs
+
+
+def mapping_split(records):
+    """Seconds of encoding (KMS + CNF), SAT search and the CEGAR oracle,
+    summed by the outcome of the II ladder they ran under (``mapped``,
+    ``timeout``, ...), with the ladders' count and the search split by the
+    solver's answer."""
+    spans = {r["span"]: r for r in records if r.get("k") == "span"}
+
+    def ladder_of(rec):
+        while rec is not None and rec["name"] != "mapper.ladder":
+            rec = spans.get(rec.get("parent"))
+        return rec
+
+    split, by_answer = {}, {}
+    for rec in spans.values():
+        if rec["name"] == "mapper.ladder":
+            row = split.setdefault(rec["attrs"].get("status"), {})
+            row["ladders"] = row.get("ladders", 0) + 1
+        elif rec["name"] in ("mapper.encode", "solver.solve",
+                             "mapper.oracle"):
+            ladder = ladder_of(rec)
+            row = split.setdefault(
+                ladder["attrs"].get("status") if ladder else None, {})
+            row[rec["name"]] = row.get(rec["name"], 0.0) + rec["dur"]
+            if rec["name"] == "solver.solve":
+                answer = rec["attrs"].get("status")
+                by_answer[answer] = by_answer.get(answer, 0.0) + rec["dur"]
+    rounded = {k: {n: round(v, 3) for n, v in row.items()}
+               for k, row in split.items()}
+    return rounded, {k: round(v, 3) for k, v in by_answer.items()}
+
+
+def trace_phase(trace_dir) -> None:
+    """Phase 8d: the report of phase ``sweep``'s trace: it validates, its
+    roots are at least ``TRACE_FLOOR`` covered by named child spans, and
+    the ten span names with the most total seconds and ``mapping_split``
+    give the split of mapping time on this host."""
+    from repro_torch.obs.report import attribution, load, validate
+
+    records = load(str(trace_dir))
+    problems = validate(records)
+    check(records and problems == [],
+          f"sweep trace: {len(records)} records, problems {problems[:3]}")
+    att = attribution(records)
+    check(att["attributed"] >= TRACE_FLOOR,
+          f"sweep trace: roots attributed {att['attributed']} < "
+          f"{TRACE_FLOOR}")
+    top = sorted(att["by_name"].items(), key=lambda kv: -kv[1]["total_s"])
+    split, by_answer = mapping_split(records)
+    emit({"phase": "trace", "spans": att["spans"], "events": att["events"],
+          "pids": att["pids"], "attributed": att["attributed"],
+          "roots": [{k: r[k] for k in ("name", "dur_s", "attributed")}
+                    for r in att["roots"]],
+          "top_total_s": [dict(row, name=name) for name, row in top[:10]],
+          "mapping_split_by_ladder_status": split,
+          "solve_seconds_by_answer": by_answer})
+
+
 def stacked_main_path(artifacts, single_reports, device) -> int:
     """Phase 4b: ``fuzz_stacked`` on every 4x4 artifact over its seed-0
     corpus of 2048 memories, as the stacked rung of
@@ -1330,6 +1733,11 @@ def main() -> int:
     fleet_rows, fleet_runs = fleet_phase(artifacts, device)
     race_runs = race_phase(device, seq_seconds)
     fleet_chaos_phase(fleet_rows)
+    sweep_smoke_phase()
+    sweep_rows, sweep_runs, sweep_err, trace_dir = sweep_phase(device)
+    heuristic_runs = heuristic_phase(device, sweep_rows)
+    trace_phase(trace_dir)
+    fused_err = max(fused_err, sweep_err)
 
     def line(name, launches, err, ms, plain_ms, bound_ms,
              replaces="src/repro/kernels/pe_array.py:67", **extra):
@@ -1346,12 +1754,15 @@ def main() -> int:
         line("pe_array.cycle_step", steps, step_err, step_ms, step_plain_ms,
              step_bound_ms),
         line("pe_array.run_cycles",
-             runs + cosim_runs + warm_runs + fleet_runs + race_runs,
+             runs + cosim_runs + warm_runs + fleet_runs + race_runs
+             + sweep_runs + heuristic_runs,
              fused_err, *fused_times[MAIN_BATCH],
              launches_by_path={"fuzz main path": runs,
                                "cosim": cosim_runs,
                                "fuzz main path, warm cache": warm_runs,
-                               "fleet": fleet_runs, "race": race_runs}),
+                               "fleet": fleet_runs, "race": race_runs,
+                               "sweep": sweep_runs,
+                               "heuristic": heuristic_runs}),
         line("pe_array.run_cycles (stacked)", stacked_runs,
              max(stacked_err, stacked_times[0]), *stacked_times[1:],
              replaces="src/repro/fuzz/engine.py:508")]})

@@ -1,6 +1,6 @@
 """The paper's primary contribution: SAT-based exact modulo-scheduling
-mapping, copied from ``src/repro/core`` (the heuristic baseline is not
-ported yet; see ``ROADMAP.md``)."""
+mapping, and the heuristic baseline it is compared against, copied from
+``src/repro/core``."""
 from .dfg import DFG, Edge, Node, running_example
 from .schedule import (KMS, MobilitySchedule, Slot, asap_alap, fold_kms,
                        kms_ii_upper_bound)
@@ -13,6 +13,7 @@ from .mapping import Mapping, Placement, validate_mapping
 from .facts import FactStore
 from .mapper import (IIAttempt, IIOutcome, MapperConfig, MapResult,
                      attempt_ii, map_dfg, map_dfg_cached, mapping_cache_key)
+from .baseline_ims import HeuristicConfig, map_dfg_heuristic
 from .regalloc import allocate_registers
 
 __all__ = [
@@ -28,5 +29,6 @@ __all__ = [
     "FactStore",
     "MapperConfig", "MapResult", "IIAttempt", "IIOutcome", "attempt_ii",
     "map_dfg", "map_dfg_cached", "mapping_cache_key",
+    "HeuristicConfig", "map_dfg_heuristic",
     "allocate_registers",
 ]

@@ -31,11 +31,12 @@ Fault kinds (the worker entry point consults ``decide`` and calls
                     simulating a torn write a later sweep must quarantine
 ==================  ========================================================
 
+``abort_after_points`` additionally simulates a killed *sweep*: the
+parent hard-exits (``os._exit``) after N completed points, which is what
+the crash-resume acceptance test recovers from via ``--resume``.
+
 A copy of ``src/repro/toolchain/chaos.py``: the same ``REPRO_CHAOS`` JSON
-injects the same faults into the fleets of both packages.  The spec keeps
-``abort_after_points`` (a killed *sweep*, which the JAX package's sweep
-acts on) so one JSON parses in both; its hook, ``maybe_abort``, comes
-with the port of the sweep.
+injects the same faults into the fleets and sweeps of both packages.
 """
 
 from __future__ import annotations
@@ -55,6 +56,9 @@ KINDS: Tuple[str, ...] = ("crash", "hang", "solver-error", "cache-corrupt")
 
 #: exit code of a simulated worker segfault (``crash``)
 CRASH_EXIT_CODE = 139
+
+#: exit code of a simulated mid-sweep kill (``abort_after_points``)
+ABORT_EXIT_CODE = 23
 
 
 class ChaosError(RuntimeError):
@@ -171,3 +175,13 @@ def corrupt_file(path: str) -> None:
     except OSError:
         pass
 
+
+def maybe_abort(completed_points: int) -> None:
+    """Hard-exit the sweep once ``abort_after_points`` is reached — the
+    deterministic stand-in for ``kill -9`` on a 20-minute sweep.  Called
+    by the sweep loop *after* the journal append for the point is
+    durable, so ``--resume`` restarts exactly here."""
+    spec = active()
+    if (spec is not None and spec.abort_after_points is not None
+            and completed_points >= spec.abort_after_points):
+        os._exit(ABORT_EXIT_CODE)

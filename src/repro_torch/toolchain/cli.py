@@ -1,7 +1,8 @@
 """``python -m repro_torch map``: compile one registry kernel end to end;
-``python -m repro_torch list``: name the registered kernels.
+``python -m repro_torch list``: name the registered kernels;
+``python -m repro_torch arch {list,show}``: architecture presets and specs.
 
-Counterparts of the ``map`` and ``list`` verbs of
+Counterparts of the ``map``, ``list`` and ``arch`` verbs of
 ``src/repro/toolchain/cli.py``::
 
     python -m repro_torch map gsm --grid 2x2 --json
@@ -9,6 +10,8 @@ Counterparts of the ``map`` and ``list`` verbs of
     python -m repro_torch map fir4 --strategy portfolio:cdcl-seq+cdcl-pair \
         --jobs 4 --cache-dir build/mapping_cache
     python -m repro_torch list --origin traced
+    python -m repro_torch arch list
+    python -m repro_torch arch show mesh-4x4:mem=col0,regs=8,ports=1/row
 
 It runs a :class:`~repro_torch.toolchain.session.Toolchain` compile
 (source -> map -> assemble -> metrics) and prints a human summary or the
@@ -124,6 +127,73 @@ def list_main(argv: Optional[List[str]] = None) -> int:
         print(f"{name:16s} {spec.origin}")
     print(f"{len(names)} kernels")
     return 0
+
+
+
+def _cmd_arch_list(args) -> int:
+    from ..archspec import PRESETS
+
+    print("presets:")
+    for name in sorted(PRESETS):
+        spec = PRESETS[name]
+        print(f"  {name:16s} {spec.to_compact()}")
+    print()
+    print("spec grammar: TOPOLOGY-RxC[:mem=SEL,mul=SEL,regs=N,ports=K/SCOPE]")
+    print("  topologies: torus mesh diagonal one-hop")
+    print("  selectors:  all none colK rowK border peA.B.C (+-unions)")
+    print("  scopes:     col row global")
+    print("  example:    mesh-4x4:mem=col0,regs=8,ports=1/row")
+    return 0
+
+
+def _cmd_arch_show(args) -> int:
+    from ..archspec import parse_arch
+
+    spec = parse_arch(args.spec)
+    grid = spec.grid()
+    print(f"{spec.label()}  ({spec.to_compact()})")
+    print(f"  geometry:   {spec.rows}x{spec.cols} ({spec.num_pes} PEs), "
+          f"{spec.num_regs} regs/PE")
+    print(f"  topology:   {spec.topology} "
+          f"(vertex-transitive: {grid.is_vertex_transitive()}, "
+          f"assemblable: {spec.assemblable})")
+    mem, mul = spec.mem_pes(), spec.mul_pes()
+    print(f"  mem PEs:    {'all' if mem is None else sorted(mem)}")
+    print(f"  mul PEs:    {'all' if mul is None else sorted(mul)}")
+    if spec.ports:
+        for label, pes, limit in spec.port_groups():
+            print(f"  port {label}: {limit} port(s) over PEs {sorted(pes)}")
+    else:
+        print("  ports:      unconstrained")
+    print(f"  arch hash:  {spec.arch_hash()}")
+    # capability map: M = load-store unit, X = multiplier, . = ALU-only
+    print("  capability map (M=mem X=mul *=both .=alu):")
+    for r in range(spec.rows):
+        cells = []
+        for c in range(spec.cols):
+            p = r * spec.cols + c
+            has_mem = mem is None or p in mem
+            has_mul = mul is None or p in mul
+            cells.append("*" if has_mem and has_mul
+                         else "M" if has_mem else "X" if has_mul else ".")
+        print("    " + " ".join(cells))
+    return 0
+
+
+def arch_main(argv: Optional[List[str]] = None) -> int:
+    """``arch list`` (presets and the spec grammar) and ``arch show SPEC``
+    (one spec, fully expanded), printed as ``python -m repro arch`` prints
+    them."""
+    ap = argparse.ArgumentParser(prog="python -m repro_torch arch",
+                                 description="architecture presets and specs")
+    arsub = ap.add_subparsers(dest="arch_cmd", required=True)
+    al = arsub.add_parser("list", help="presets + the spec grammar")
+    al.set_defaults(fn=_cmd_arch_list)
+    ash = arsub.add_parser("show", help="expand one spec/preset")
+    ash.add_argument("spec", help="spec string or preset name")
+    ash.set_defaults(fn=_cmd_arch_show)
+    args = ap.parse_args(argv)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """The CUDA kernels (cycle step and whole-program run, single and stacked)
 against their plain PyTorch versions, and the fuzz path's stacked run,
 activity harvest and triage, a kernel the port mapped itself, and the
-traced front-end's co-simulation, against the CPU path, on the card.
+traced front-end's co-simulation, swept points of the size ladder and a
+heuristic-baseline mapping, against the CPU path, on the card.
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode): they
 carry the ``cuda`` marker and skip elsewhere.  They import nothing of
 JAX, so they run where only the port is installed::
@@ -418,3 +419,62 @@ def test_fuzz_kernel_cache_cold_then_warm_on_the_card(cuda, tmp_path):
             doc.pop(key)
     assert docs[0] == docs[1]
     assert reps[0].status == "ok" and reps[0].backend == "cuda"
+
+
+@pytest.mark.parametrize("kernel,size", [("gsm", (2, 3)), ("bitcount", (6, 6))])
+def test_swept_point_fuzzes_on_the_card(cuda, tmp_path, kernel, size):
+    """A point of the size ladder, swept on two workers forked after a
+    launch, runs on the card bit-equal to the CPU (trace and final memory)
+    and fuzzes ``ok`` through ``fuzz_kernel`` from the sweep's cache."""
+    from repro_torch.cgra.artifact import Artifact
+    from repro_torch.dse import MappingCache, SweepConfig, run_sweep
+    from repro_torch.toolchain import Toolchain
+
+    _launch_first(cuda)
+    label = f"{size[0]}x{size[1]}"
+    cfg = SweepConfig(kernels=(kernel,), sizes=(size, (2, 2)),
+                      backend="cdcl", jobs=2,
+                      cache_dir=str(tmp_path / "cache"))
+    row = run_sweep(cfg)["points"][0]
+    assert (row["size"], row["status"]) == (label, "mapped")
+    cache = MappingCache(cfg.cache_dir)
+    tc = Toolchain(label, cfg.mapper_config(), cache=cache)
+    prog = tc.program(kernel)
+    art = Artifact.from_mapping(prog.builder, tc.map(prog).mapping,
+                                arch=label)
+    mems = make_corpus(art, 300)
+    runs = [execute_asm(art.asm, art.grid, mems, batch=300, device=d)
+            for d in (cuda, "cpu")]
+    assert torch.equal(runs[0][1].cpu(), runs[1][1])
+    assert torch.equal(runs[0][0].mem.cpu(), runs[1][0].mem)
+    rep = fuzz_kernel(kernel, label, memories=2048, batch=1024,
+                      config=cfg.mapper_config(), cache=cache, device=cuda)
+    assert rep.status == "ok" and rep.failing == [], rep.mismatches[:2]
+    assert rep.backend == "cuda" and rep.ii == row["ii"]
+    stats = cache.stats()
+    assert (stats["hits"], stats["misses"]) == (2, 0)
+
+
+def test_routing_free_heuristic_mapping_runs_on_the_card(cuda):
+    """bitcount@3x3 under the heuristic baseline (seed 1) maps without
+    routing nodes and runs on the card with no mismatch, bit-equal to the
+    CPU."""
+    from repro_torch.cgra.arch import make_grid
+    from repro_torch.cgra.artifact import Artifact
+    from repro_torch.cgra.programs import BENCHMARKS
+    from repro_torch.core import (HeuristicConfig, map_dfg_heuristic,
+                                  validate_mapping)
+
+    prog = BENCHMARKS["bitcount"]()
+    res = map_dfg_heuristic(prog.build_dfg(), make_grid(3, 3),
+                            HeuristicConfig(seed=1))
+    assert res.mapping is not None and res.mapping.routing_nodes == 0
+    assert validate_mapping(res.mapping) == []
+    art = Artifact.from_mapping(prog, res.mapping, arch="3x3")
+    mems = make_corpus(art, 2048)
+    before = run_cycles.launches
+    rep = fuzz_program(art, mems, batch=1024, device=cuda)
+    assert rep.status == "ok" and rep.failing == [], rep.mismatches[:2]
+    assert run_cycles.launches == before + 2
+    cpu = fuzz_program(art, mems[:256], batch=256, device="cpu")
+    assert (cpu.status, cpu.failing) == ("ok", [])

@@ -1,6 +1,7 @@
 """repro_torch stands alone: no file of the port imports ``jax`` or
-``repro``, the package maps (also through the cache, the compile fleet and
-a two-worker race), runs and co-simulates a traced kernel with both
+``repro``, the package maps (also through the cache, the compile fleet, a
+two-worker race, a two-point sweep and the heuristic baseline), runs,
+co-simulates a traced kernel and reports on its own trace with both
 blocked, and an entry point asked for the card on a host without one
 raises instead of using the CPU."""
 import ast
@@ -66,6 +67,22 @@ def test_port_runs_with_jax_and_repro_blocked(tmp_path):
         "race = Toolchain('2x2', MapperConfig(\n"
         "    strategy='portfolio:cdcl-seq+cdcl-pair')).map('gsm', jobs=2)\n"
         "assert race.status == 'mapped' and race.strategies_raced >= 2\n"
+        "from repro_torch.obs import trace as obs_trace\n"
+        "from repro_torch.obs.report import attribution, load, validate\n"
+        "from repro_torch.dse import SweepConfig, run_sweep\n"
+        "obs_trace.enable(sys.argv[1] + '-trace')\n"
+        "doc = run_sweep(SweepConfig(\n"
+        "    kernels=('bitcount',), sizes=((2, 2), (2, 3)), backend='cdcl',\n"
+        "    jobs=2, cache_dir=sys.argv[1] + '-sweep'))\n"
+        "obs_trace.disable()\n"
+        "assert [r['status'] for r in doc['points']] == ['mapped'] * 2, doc\n"
+        "records = load(sys.argv[1] + '-trace')\n"
+        "assert validate(records) == []\n"
+        "assert attribution(records)['spans'] > 0\n"
+        "from repro_torch.cgra.arch import make_grid\n"
+        "from repro_torch.core import HeuristicConfig, map_dfg_heuristic\n"
+        "heur = map_dfg_heuristic(prog.dfg, make_grid(4, 4), HeuristicConfig())\n"
+        "assert heur.status == 'mapped', heur\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok', sim.total_rows)\n")

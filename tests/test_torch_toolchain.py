@@ -160,8 +160,9 @@ def test_single_strategies_map_as_the_legacy_pair():
 
 def test_unported_session_parts_raise(tmp_path):
     """The cache, the fact store, ``jobs=`` and ``compile_many`` are
-    ported and build what the JAX package's do; what is still to port
-    (the sweep, the server, the heuristic baseline, their verbs) is
+    ported and build what the JAX package's do, and so are the sweep, the
+    heuristic baseline and the ``sweep``/``trace``/``arch`` verbs; what is
+    still to port (the server and its ``serve``/``submit`` verbs) is
     absent rather than stubbed."""
     import importlib
     import subprocess
@@ -180,13 +181,19 @@ def test_unported_session_parts_raise(tmp_path):
     assert tc.last_cache_hit
     assert tc.compile("bitcount", jobs=2).cache_hit
     for module in ("repro_torch.dse.sweep", "repro_torch.dse.space",
-                   "repro_torch.serve", "repro_torch.core.baseline_ims"):
-        with pytest.raises(ModuleNotFoundError):
-            importlib.import_module(module)
-    for verb in ("sweep", "serve", "submit", "trace", "arch"):
+                   "repro_torch.core.baseline_ims", "repro_torch.obs.report"):
+        importlib.import_module(module)
+    with pytest.raises(ModuleNotFoundError):
+        importlib.import_module("repro_torch.serve")
+    for verb in ("serve", "submit"):
         proc = subprocess.run([sys.executable, "-m", "repro_torch", verb],
                               capture_output=True, text=True, timeout=60)
         assert proc.returncode == 2 and "usage" in proc.stderr
+    for verb in ("sweep", "trace", "arch"):
+        proc = subprocess.run([sys.executable, "-m", "repro_torch", verb,
+                               "--help"], capture_output=True, text=True,
+                              timeout=60)
+        assert proc.returncode == 0 and "usage" in proc.stdout
 
 
 @pytest.mark.parametrize("spec", sorted(PRESETS) + [
@@ -209,6 +216,16 @@ def test_archspec_resolves_as_in_jax(spec):
         [jax_energy.pe_area(j_grid, p) for p in range(j_grid.num_pes)]
     if grid.assemblable:
         assert neighbor_table(grid) == jax_sim.neighbor_table(j_grid)
+
+
+@pytest.mark.parametrize("argv", [["list"]] + [
+    ["show", spec] for spec in sorted(PRESETS) + [
+        "4x4", "mesh-4x4:mem=col0,regs=8,ports=1/row", "torus-3x5:mul=row1"]])
+def test_arch_verb_prints_as_in_jax(argv, capsys):
+    assert cli.arch_main(argv) == 0
+    port = capsys.readouterr().out
+    assert jax_cli.main(["arch", *argv]) == 0
+    assert port == capsys.readouterr().out
 
 
 def test_artifact_grid_is_the_mapper_grid():
