@@ -101,6 +101,15 @@ per line:
       every routing-free one runs on the card with no mismatch;
    d. ``trace``: the sweep's trace validates, its roots at least 95%
       attributed, and the ten span names with the most seconds;
+   e. ``serve``: the serving lane's 320 requests (``benchmarks/serving.py``
+      full mode, copied) through the port's ``CompileServer`` over TCP, on
+      8 process workers forked after CUDA is up, into a fresh cache, equal
+      to the committed ``results/BENCH_serving.json`` on all 46 points and
+      the dedup contract (timings and the cache/coalesced split are
+      printed, not compared); then ``python -m repro_torch serve`` and
+      ``submit`` as subprocesses (a cache hit, a new point at the port's
+      own II, ``stats``, ``--shutdown``); then every point the server
+      mapped fuzzed on the card from its cache (every map a hit), ``ok``;
 9. the kernels line (the whole-program run's launches summed over the
    paths that run it, and given per path), then the device line last.
 
@@ -115,6 +124,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -173,6 +183,35 @@ HEURISTIC_CONFIG = dict(seed=0, tries_per_ii=10, ii_max=40,
 TRACE_FLOOR = 0.95
 #: the sweep phases' outputs and trace (under build/, which git ignores)
 SWEEP_ROOT = ROOT / "build" / "chip_smoke_sweep"
+
+#: phase ``serve``: the full mode of the serving lane
+#: (``benchmarks/serving.py``; this script imports nothing of
+#: ``benchmarks``, so its settings are copied here): 320 requests drawn
+#: Zipf(1.1) from seed 7 over the registry kernels x ``SERVE_ARCHES``,
+#: the heavyweight kernels on the rungs where they end deterministically,
+#: each request under ``MAP_CONFIG`` (CDCL pinned) plus its kernel's
+#: overrides, 8 in flight on one connection, to a server with 8 workers
+SERVE_ARCHES = ("4x4", "mesh-4x4", "bordermem-4x4")
+SERVE_KERNEL_ARCHES = {
+    "sqrt": ["3x3", "mesh-3x3", "bordermem-3x3"],
+    "sha": ["2x2", "mesh-2x2", "bordermem-2x2"],
+    "sha2": ["2x2", "mesh-2x2", "bordermem-2x2"],
+}
+SERVE_KERNEL_CONFIG = {"sha": {"ii_max": 4}}
+SERVE_PRIORITIES = (0, 1, 5)
+SERVE_TENANTS = ("alice", "bob", "carol")
+SERVE_SEED, SERVE_ZIPF_S, SERVE_REQUESTS = 7, 1.1, 320
+SERVE_CONCURRENCY = SERVE_JOBS = 8
+#: summary keys that vary run to run or by how a request was served
+SERVE_VOLATILE_KEYS = ("stage_times_s", "cache_hit", "cancelled_after_s")
+#: lane keys that are timings, or the cache/coalesced split, which
+#: depends on arrival times: reported, never compared
+SERVE_TIMED_KEYS = ("served", "throughput_rps", "p50_ms", "p99_ms",
+                    "wall_time_s")
+#: a point the lane does not hold, submitted through the verbs (CEGAR)
+SERVE_NEW_POINT = ("gsm", "2x2")
+#: seconds a client waits for the whole lane, or for one ``submit``
+SERVE_CLIENT_TIMEOUT_S = 600
 
 
 def emit(obj) -> None:
@@ -1234,6 +1273,302 @@ def trace_phase(trace_dir) -> None:
           "solve_seconds_by_answer": by_answer})
 
 
+def build_workload(kernels, arches, n, seed, zipf_s):
+    """The serving lane's request list (``benchmarks/serving.py``):
+    Zipf-ranked (kernel, arch) points with round-robin tenants and seeded
+    priorities."""
+    import random
+
+    points = [(k, a) for k in kernels
+              for a in SERVE_KERNEL_ARCHES.get(k, arches)]
+    rng = random.Random(seed)
+    weights = [1.0 / (rank + 1) ** zipf_s for rank in range(len(points))]
+    draws = rng.choices(points, weights=weights, k=n)
+    return [{"kernel": k, "arch": a,
+             "priority": rng.choice(SERVE_PRIORITIES),
+             "tenant": SERVE_TENANTS[i % len(SERVE_TENANTS)]}
+            for i, (k, a) in enumerate(draws)]
+
+
+def serve_projection(summary) -> str:
+    """Canonical bytes of a result summary less ``SERVE_VOLATILE_KEYS``:
+    what must be identical across a dedup group."""
+    stable = {k: v for k, v in summary.items()
+              if k not in SERVE_VOLATILE_KEYS}
+    return json.dumps(stable, sort_keys=True, separators=(",", ":"))
+
+
+def request_config(kernel):
+    """The mapper overrides one lane request of ``kernel`` carries."""
+    return dict(MAP_CONFIG, **SERVE_KERNEL_CONFIG.get(kernel, {}))
+
+
+def serve_lane(kernels, arches, n, mode, cache_dir, jobs, concurrency,
+               inline=False):
+    """The serving lane through the port: a ``CompileServer`` (``jobs``
+    process workers, or threads with ``inline``) on a free TCP port with
+    the mapping cache at ``cache_dir``, driven by one ``ServeClient``
+    connection with ``concurrency`` requests in flight, over the workload
+    of ``build_workload(kernels, arches, n, SERVE_SEED, SERVE_ZIPF_S)``.
+    A rejection, a server error or a client timeout raises.  Returns the
+    lane's document, with the keys of ``results/BENCH_serving.json``, and
+    the ``(latency_s, "kernel@arch", served)`` of its slowest requests."""
+    import asyncio
+
+    from repro_torch.serve import CompileServer, ServeClient
+
+    workload = build_workload(kernels, arches, n, SERVE_SEED, SERVE_ZIPF_S)
+
+    async def drive():
+        server = CompileServer(jobs=jobs, inline=inline, cache=cache_dir)
+        try:
+            host, port = await server.start(port=0)
+            client = await ServeClient.connect(host, port)
+            sem = asyncio.Semaphore(concurrency)
+            results, lat = [None] * n, [0.0] * n
+
+            async def one(i, r):
+                async with sem:
+                    t0 = time.monotonic()
+                    results[i] = await client.compile(
+                        r["kernel"], arch=r["arch"],
+                        config=request_config(r["kernel"]),
+                        priority=r["priority"], tenant=r["tenant"])
+                    lat[i] = time.monotonic() - t0
+
+            t0 = time.monotonic()
+            await asyncio.wait_for(
+                asyncio.gather(*(one(i, r) for i, r in enumerate(workload))),
+                SERVE_CLIENT_TIMEOUT_S)
+            wall = time.monotonic() - t0
+            stats = await client.stats()
+            await client.shutdown()
+            await server.wait_closed()
+            await client.close()
+            return results, lat, wall, stats
+        finally:
+            server.close()
+
+    results, lat, wall, stats = asyncio.run(drive())
+    by_point = {}
+    for i, r in enumerate(workload):
+        by_point.setdefault((r["kernel"], r["arch"]), []).append(i)
+    identical, points = 0, []
+    for (kernel, arch), idxs in sorted(by_point.items()):
+        ref_cr = results[idxs[0]][0]
+        ref = serve_projection(ref_cr.summary())
+        identical += sum(serve_projection(results[i][0].summary()) == ref
+                         for i in idxs[1:])
+        s = ref_cr.summary()
+        points.append({
+            "kernel": kernel, "arch": arch, "requests": len(idxs),
+            "status": s["status"], "stage": s["stage"], "error": s["error"],
+            "ii": s["ii"], "mii": s["mii"], "map_status": s.get("map_status"),
+            "backend": s.get("backend"),
+            "utilization": s.get("utilization")})
+    unique, duplicates = len(by_point), n - len(by_point)
+    slowest = sorted(((lat[i], f"{r['kernel']}@{r['arch']}", results[i][1])
+                      for i, r in enumerate(workload)), reverse=True)[:5]
+    lat = sorted(lat)
+
+    def pctl(q):
+        return lat[min(n - 1, int(q * (n - 1) + 0.5))]
+
+    doc = {
+        "bench": "serving", "mode": mode, "seed": SERVE_SEED,
+        "zipf_s": SERVE_ZIPF_S, "arches": list(arches),
+        "kernels": list(kernels),
+        "kernel_arches": {k: v for k, v in sorted(SERVE_KERNEL_ARCHES.items())
+                          if k in kernels},
+        "kernel_config": {k: v for k, v in sorted(SERVE_KERNEL_CONFIG.items())
+                          if k in kernels},
+        "backend": MAP_CONFIG["backend"], "n_requests": n,
+        "unique_points": unique, "compiles": stats["mapper_invocations"],
+        "duplicates": duplicates, "identical_duplicates": identical,
+        "dedup_ok": (stats["mapper_invocations"] == unique
+                     and identical == duplicates),
+        "cache_hit_ratio": round(duplicates / n, 4),
+        "served": {"compiled": stats["serving"]["compiled"],
+                   "cache": stats["serving"]["cache_hits"],
+                   "coalesced": stats["serving"]["coalesced"]},
+        "rejected": stats["serving"]["rejected"],
+        "errors": stats["serving"]["errors"],
+        "throughput_rps": round(n / wall, 2),
+        "p50_ms": round(pctl(0.50) * 1e3, 2),
+        "p99_ms": round(pctl(0.99) * 1e3, 2),
+        "wall_time_s": round(wall, 3), "points": points}
+    return doc, slowest
+
+
+def serve_verbs(cache_dir) -> dict:
+    """Phase 8e, second part: ``python -m repro_torch serve`` as a
+    subprocess (``--jobs 4``, on ``cache_dir``), then ``submit`` as users
+    run it: gsm@4x4, which the lane served, comes from the cache; gsm@2x2,
+    which it did not (the CEGAR case), is ``compiled`` and ``mapped`` at
+    the II of the port's own ``Toolchain`` in this process; a ``stats``
+    request carries ``STATS_SCHEMA`` 2, every field of the v1 golden body
+    with its JSON type, and the request-latency percentiles; ``submit
+    --shutdown`` stops the server, which exits 0."""
+    from repro_torch.serve import request_sync
+    from repro_torch.toolchain import Toolchain
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    server = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch", "serve", "--port", "0",
+         "--jobs", "4", "--cache-dir", cache_dir],
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    drain = None
+    try:
+        banner = server.stderr.readline()
+        while banner and "listening on" not in banner:
+            banner = server.stderr.readline()
+        check("listening on" in banner, "serve verb exited before listening")
+        port = banner.split("listening on ")[1].split()[0].rsplit(":", 1)[1]
+        # keep reading its stderr, so that a full pipe never blocks it
+        drain = threading.Thread(target=server.stderr.read, daemon=True)
+        drain.start()
+
+        def submit(kernel, grid, *extra):
+            t0 = time.monotonic()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch", "submit", kernel,
+                 "--grid", grid, "--backend", MAP_CONFIG["backend"],
+                 "--port", port, "--json", *extra],
+                capture_output=True, text=True, env=env, cwd=ROOT,
+                timeout=SERVE_CLIENT_TIMEOUT_S)
+            check(proc.returncode == 0,
+                  f"submit {kernel}@{grid}: rc {proc.returncode} "
+                  f"{proc.stderr[-400:]}")
+            return json.loads(proc.stdout), time.monotonic() - t0
+
+        hit, hit_s = submit("gsm", "4x4")
+        check(hit["served"] == "cache" and hit["cache_hit"]
+              and hit["status"] == "ok",
+              f"submit gsm@4x4: {hit['served']} {hit['status']}")
+        kernel, grid = SERVE_NEW_POINT
+        new, new_s = submit(kernel, grid)
+        own = Toolchain(grid, map_config()).map(kernel)
+        check(new["served"] == "compiled" and new["map_status"] == "mapped"
+              and new["status"] == "ok" and new["ii"] == own.ii,
+              f"submit {kernel}@{grid}: {new['served']} {new['map_status']} "
+              f"II {new['ii']}, the port's Toolchain II {own.ii}")
+        stats = request_sync(None, "127.0.0.1", int(port))["stats"]
+        golden = json.loads((ROOT / "tests" / "fixtures" /
+                             "wire_stats_v1.json").read_text())
+        golden.pop("_comment")
+        for key, val in golden.items():
+            check(type(stats.get(key)) is type(val),
+                  f"serve stats: v1 field {key} missing or retyped")
+        latency = stats["metrics"]["histograms"]["serve.request_s"]
+        check(stats["stats_schema"] == 2 and latency["count"] == 2
+              and {"p50", "p90", "p99"} <= set(latency),
+              f"serve stats: schema {stats['stats_schema']}, {latency}")
+        bye, _ = submit(kernel, grid, "--shutdown")
+        check(bye["served"] == "cache", f"submit --shutdown: {bye['served']}")
+        rc = server.wait(timeout=60)
+        check(rc == 0, f"serve verb exited {rc}")
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+        if drain is not None:
+            drain.join(timeout=10)
+        server.stderr.close()
+    return {"cache_point": f"gsm@4x4 {hit['served']}",
+            "new_point": f"{kernel}@{grid} {new['served']} II {new['ii']}",
+            "toolchain_ii": own.ii, "stats_schema": stats["stats_schema"],
+            "serving": stats["serving"],
+            "request_s": {k: latency[k] for k in ("p50", "p90", "p99")},
+            "submit_seconds": {"cache": round(hit_s, 3),
+                               "compiled": round(new_s, 3)},
+            "server_exit": rc}
+
+
+def serve_phase(device) -> int:
+    """Phase 8e: the compile server at the serving lane's full width.
+    The 320 requests of ``benchmarks/serving.py``'s full mode go through
+    ``serve_lane`` (``SERVE_JOBS`` process workers forked after CUDA is
+    up, a fresh cache) and must equal the committed
+    ``results/BENCH_serving.json`` on every point and on the dedup
+    contract, timings and the cache/coalesced split apart; then the verbs
+    (``serve_verbs``); then every point the server mapped is fuzzed on the
+    card through ``fuzz_kernel`` from the server's cache under its
+    request's config (each map a hit), 2048 memories, ``ok``.  Returns the
+    launches of run_cycles over the fuzz runs."""
+    from repro_torch.cgra.registry import kernel_names
+    from repro_torch.core.mapper import MapperConfig
+    from repro_torch.dse import MappingCache
+    from repro_torch.fuzz.engine import fuzz_kernel
+    from repro_torch.kernels.pe_array import cycle_step, run_cycles
+
+    committed = json.loads(
+        (ROOT / "results" / "BENCH_serving.json").read_text())
+    cache_dir = str(fresh_dir(CACHE_ROOT / "serve"))
+    emit({"phase": "serve_plan", "requests": SERVE_REQUESTS,
+          "kernels": len(kernel_names()), "arches": list(SERVE_ARCHES),
+          "kernel_arches": SERVE_KERNEL_ARCHES,
+          "kernel_config": SERVE_KERNEL_CONFIG, "jobs": SERVE_JOBS,
+          "concurrency": SERVE_CONCURRENCY, "config": MAP_CONFIG})
+    cycle_step.launches = run_cycles.launches = 0
+    doc, slowest = serve_lane(kernel_names(), list(SERVE_ARCHES),
+                              SERVE_REQUESTS, "full", cache_dir, SERVE_JOBS,
+                              SERVE_CONCURRENCY)
+    check(run_cycles.launches == cycle_step.launches == 0,
+          "the compile server launched a kernel")
+    for got in doc["points"]:
+        emit({"phase": "serve_point", **got})
+    wrong = [got for got, want in zip(doc["points"], committed["points"])
+             if got != want]
+    check(not wrong, f"serve points differ from results/BENCH_serving.json:"
+                     f" {wrong[:3]}")
+    differ = sorted(k for k in committed
+                    if k not in SERVE_TIMED_KEYS and doc[k] != committed[k])
+    check(not differ and doc["compiles"] == doc["unique_points"] == 46
+          and doc["identical_duplicates"] == doc["duplicates"] == 274,
+          f"serve lane differs from results/BENCH_serving.json in {differ}")
+    emit({"phase": "serve", "card": card_line(),
+          **{k: doc[k] for k in (
+              "n_requests", "unique_points", "compiles", "duplicates",
+              "identical_duplicates", "cache_hit_ratio", "rejected",
+              "errors", "served", "throughput_rps", "p50_ms", "p99_ms",
+              "wall_time_s")},
+          "slowest_requests_ms": [[round(t * 1e3, 2), point, served]
+                                  for t, point, served in slowest],
+          "committed_host_wall_time_s": committed["wall_time_s"]})
+    emit({"phase": "serve_verbs", **serve_verbs(cache_dir)})
+
+    cache = MappingCache(cache_dir)
+    mapped = [p for p in doc["points"] if p["map_status"] == "mapped"]
+    t0 = time.monotonic()
+    for p in mapped:
+        rep = fuzz_kernel(p["kernel"], p["arch"], memories=MAIN_MEMORIES,
+                          batch=MAIN_BATCH, seed=0,
+                          config=MapperConfig(**request_config(p["kernel"])),
+                          cache=cache, device=device)
+        check(rep.status == "ok" and rep.backend == "cuda"
+              and rep.ii == p["ii"],
+              f"served {p['kernel']}@{p['arch']}: fuzz {rep.status} II "
+              f"{rep.ii} {rep.mismatches[:2]}")
+        emit({"phase": "serve_fuzz", "kernel": p["kernel"],
+              "arch": p["arch"], "ii": rep.ii, "fuzz": rep.status,
+              "mem_rate": rep.mem_rate})
+    fuzz_s = time.monotonic() - t0
+    stats = cache.stats()
+    steps, runs = cycle_step.launches, run_cycles.launches
+    check(stats["hits"] == len(mapped) and stats["misses"] == 0,
+          f"serve fuzz: cache {stats} for {len(mapped)} mapped points")
+    check(runs == len(mapped) * -(-MAIN_MEMORIES // MAIN_BATCH)
+          and steps == 0,
+          f"serve fuzz launched run_cycles {runs}, cycle_step {steps} times")
+    emit({"phase": "serve_fuzz_summary", "points": len(mapped),
+          "ok": len(mapped), "cache_hits": stats["hits"],
+          "not_run": [f"{p['kernel']}@{p['arch']} {p['status']}"
+                      for p in doc["points"]
+                      if p["map_status"] != "mapped"],
+          "run_cycles_launches": runs, "fuzz_seconds": round(fuzz_s, 3)})
+    return runs
+
+
 def stacked_main_path(artifacts, single_reports, device) -> int:
     """Phase 4b: ``fuzz_stacked`` on every 4x4 artifact over its seed-0
     corpus of 2048 memories, as the stacked rung of
@@ -1737,6 +2072,7 @@ def main() -> int:
     sweep_rows, sweep_runs, sweep_err, trace_dir = sweep_phase(device)
     heuristic_runs = heuristic_phase(device, sweep_rows)
     trace_phase(trace_dir)
+    serve_runs = serve_phase(device)
     fused_err = max(fused_err, sweep_err)
 
     def line(name, launches, err, ms, plain_ms, bound_ms,
@@ -1755,14 +2091,15 @@ def main() -> int:
              step_bound_ms),
         line("pe_array.run_cycles",
              runs + cosim_runs + warm_runs + fleet_runs + race_runs
-             + sweep_runs + heuristic_runs,
+             + sweep_runs + heuristic_runs + serve_runs,
              fused_err, *fused_times[MAIN_BATCH],
              launches_by_path={"fuzz main path": runs,
                                "cosim": cosim_runs,
                                "fuzz main path, warm cache": warm_runs,
                                "fleet": fleet_runs, "race": race_runs,
                                "sweep": sweep_runs,
-                               "heuristic": heuristic_runs}),
+                               "heuristic": heuristic_runs,
+                               "serve": serve_runs}),
         line("pe_array.run_cycles (stacked)", stacked_runs,
              max(stacked_err, stacked_times[0]), *stacked_times[1:],
              replaces="src/repro/fuzz/engine.py:508")]})

@@ -15,8 +15,11 @@ PyTorch on the CPU:
   registry, the assembler, artifacts, simulate/verify, the latency/energy
   model
 * :mod:`repro_torch.toolchain` the compilation session, ``compile_many``
-  over the supervised worker fleet (retries, degradation, chaos);
-  ``python -m repro_torch map``
+  over the supervised worker fleet (retries, degradation, chaos), the
+  wire views of its results; ``python -m repro_torch map``
+* :mod:`repro_torch.serve`     the asyncio compile server, its wire
+  protocol (the JAX package's, byte for byte) and clients;
+  ``python -m repro_torch serve`` / ``submit``
 * :mod:`repro_torch.dse`       the content-addressed mapping cache
 * :mod:`repro_torch.kernels`   the cycle step and the whole-program run
   (kernels + plain versions) and ``run_program``

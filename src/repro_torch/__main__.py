@@ -1,16 +1,20 @@
-"""``python -m repro_torch {map,cosim,fuzz,sweep,trace,list,arch} ...``: the
-port's command line.  Each verb is dispatched before any argparse, as
+"""``python -m repro_torch {map,serve,submit,cosim,fuzz,sweep,trace,list,arch}
+...``: the port's command line.  Each verb is dispatched before any argparse, as
 ``src/repro/toolchain/cli.py`` does, so its own flags and ``--help`` reach
 its parser."""
 import sys
 
 _USAGE = ("usage: python -m repro_torch "
-          "{map,cosim,fuzz,sweep,trace,list,arch} [--help]")
+          "{map,serve,submit,cosim,fuzz,sweep,trace,list,arch} [--help]")
 
 
 def _main(argv) -> int:
     if argv and argv[0] == "map":
         from .toolchain.cli import main
+    elif argv and argv[0] == "serve":
+        from .toolchain.cli import serve_main as main
+    elif argv and argv[0] == "submit":
+        from .toolchain.cli import submit_main as main
     elif argv and argv[0] == "cosim":
         from .frontend.verify import main
     elif argv and argv[0] == "fuzz":

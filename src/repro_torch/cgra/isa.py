@@ -50,6 +50,7 @@ def fits_imm(v: int) -> bool:
 
 LOAD_OPS = ("LWD", "LWI")
 STORE_OPS = ("SWD", "SWI")
+FLAG_SELECT_OPS = ("BSFA", "BZFA")
 MUL_OPS = ("SMUL", "FXPMUL")
 
 

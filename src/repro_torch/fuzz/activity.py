@@ -49,6 +49,24 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) & M32) >> 24
 
 
+try:
+    _np_bitcount = np.bitwise_count          # numpy >= 2.0
+except AttributeError:                        # pragma: no cover - old numpy
+    _np_bitcount = None
+    _POP_TABLE = np.array([bin(i).count("1") for i in range(256)],
+                          np.uint8)
+
+
+def popcount_u32(x: np.ndarray) -> np.ndarray:
+    """Per-element popcount of a uint32 array, on the host: the numpy
+    helper of ``src/repro/fuzz/activity.py``.  The harvest itself
+    popcounts on the trace's device (:func:`popcount32`)."""
+    if _np_bitcount is not None:
+        return _np_bitcount(x).astype(np.int64)
+    b = np.ascontiguousarray(x).view(np.uint8)  # pragma: no cover
+    return _POP_TABLE[b].reshape(x.shape + (4,)).sum(-1).astype(np.int64)
+
+
 @dataclass
 class ActivityReport:
     """Aggregated switching statistics of one assembled kernel."""

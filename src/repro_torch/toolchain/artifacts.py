@@ -11,18 +11,18 @@ Stage order (the paper's Fig. 4 flow, plus run-time metrics)::
     source -> Program -> MapResult -> AssembledCIL -> RuntimeMetrics
                                                    -> SimResult
 
-A copy of ``StageError``, ``Program``, ``CompileResult`` and
-``format_error`` from ``src/repro/toolchain/artifacts.py``.  The wire
-views (``WireMapping``, ``WireMapResult``) and ``CompileResult.from_dict``,
-which the compile server and the fleet need, are not ported yet
-(``ROADMAP.md``).
+A copy of ``src/repro/toolchain/artifacts.py``, the wire views
+(``WireMapping``, ``WireMapResult``) and ``CompileResult.from_dict``
+included: a ``to_dict`` document of either package revives on this side.
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
+from ..cgra.arch import PEGrid
 from ..cgra.bitstream import AssembledCIL
 from ..cgra.energy import RuntimeMetrics
 from ..core.dfg import DFG
@@ -84,6 +84,135 @@ class Program:
             f"Program({self.name!r}, origin={self.origin!r}, "
             f"nodes={self.dfg.num_nodes}, edges={self.dfg.num_edges})"
         )
+
+
+class WireMapping:
+    """Read-only view of a serialized :class:`~repro_torch.core.mapping.Mapping`
+    — the wire side of a round trip, where no DFG/grid exists to revive
+    live objects.  Exposes exactly what digests consume."""
+
+    __slots__ = ("_d", "_num_pes")
+
+    def __init__(self, d: Dict, num_pes: Optional[int] = None):
+        self._d = d
+        self._num_pes = num_pes
+
+    @property
+    def ii(self) -> int:
+        return self._d["ii"]
+
+    @property
+    def num_folds(self) -> int:
+        return self._d["num_folds"]
+
+    @property
+    def placements(self) -> List:
+        return self._d["placements"]
+
+    @property
+    def routing_nodes(self) -> int:
+        return self._d.get("routing_nodes", 0)
+
+    @property
+    def utilization(self) -> float:
+        """Paper's U — recomputable from the serialized form alone."""
+        if self._num_pes is None:
+            raise ValueError("WireMapping needs num_pes for utilization")
+        return len(self._d["placements"]) / float(self.ii * self._num_pes)
+
+    def to_dict(self) -> Dict:
+        return copy.deepcopy(self._d)
+
+
+class WireMapResult:
+    """Read-only view of :meth:`~repro_torch.core.mapper.MapResult.to_dict`
+    output.  :meth:`CompileResult.from_dict` uses it when no ``dfg`` +
+    ``grid`` are at hand (the wire/client side), so a serialized result —
+    the fleet's failure provenance and the racer's telemetry included —
+    round-trips losslessly: :meth:`to_dict` re-emits the stored dict
+    unchanged, and every field :meth:`CompileResult.summary` reads is a
+    property here.  :meth:`revive` upgrades to a full
+    :class:`~repro_torch.core.mapper.MapResult` once the artifacts exist."""
+
+    __slots__ = ("_d", "_num_pes")
+
+    def __init__(self, d: Dict, num_pes: Optional[int] = None):
+        self._d = d
+        self._num_pes = num_pes
+
+    @property
+    def status(self) -> str:
+        return self._d["status"]
+
+    @property
+    def mii(self) -> int:
+        return self._d["mii"]
+
+    @property
+    def backend(self) -> str:
+        return self._d.get("backend", "")
+
+    @property
+    def cegar_rounds(self) -> int:
+        return self._d.get("cegar_rounds", 0)
+
+    @property
+    def encodings_built(self) -> int:
+        return self._d.get("encodings_built", 0)
+
+    @property
+    def incremental_solves(self) -> int:
+        return self._d.get("incremental_solves", 0)
+
+    @property
+    def total_time_s(self) -> float:
+        return self._d.get("total_time_s", 0.0)
+
+    @property
+    def attempts(self) -> List:
+        return self._d.get("attempts", [])
+
+    @property
+    def validation_errors(self) -> List[str]:
+        return self._d.get("validation_errors", [])
+
+    @property
+    def strategies_raced(self) -> int:
+        return self._d.get("strategies_raced", 0)
+
+    @property
+    def winner(self) -> str:
+        return self._d.get("winner", "")
+
+    @property
+    def cancelled_after_s(self) -> Optional[float]:
+        return self._d.get("cancelled_after_s")
+
+    @property
+    def unsat_iis(self) -> List[int]:
+        return self._d.get("unsat_iis", [])
+
+    @property
+    def facts_used(self) -> int:
+        return self._d.get("facts_used", 0)
+
+    @property
+    def mapping(self) -> Optional[WireMapping]:
+        if self._d.get("mapping") is None:
+            return None
+        return WireMapping(self._d["mapping"], num_pes=self._num_pes)
+
+    @property
+    def ii(self) -> Optional[int]:
+        m = self._d.get("mapping")
+        return m["ii"] if m else None
+
+    def to_dict(self) -> Dict:
+        return copy.deepcopy(self._d)
+
+    def revive(self, dfg: DFG, grid: PEGrid) -> MapResult:
+        """The full artifact, once a DFG and grid exist on this side."""
+        return MapResult.from_dict(dfg, grid, self._d)
 
 
 @dataclass
@@ -188,6 +317,51 @@ class CompileResult:
         if self.degraded is not None:
             out["degraded"] = self.degraded
         return out
+
+    @classmethod
+    def from_dict(
+        cls,
+        d: Dict,
+        dfg: Optional[DFG] = None,
+        grid: Optional[PEGrid] = None,
+        program: Optional[Program] = None,
+    ) -> "CompileResult":
+        """Rebuild from :meth:`to_dict` output.  With ``dfg``/``grid``
+        (or a ``program`` plus ``grid``) the mapping revives into full
+        live artifacts; without them — the wire/client side — the
+        ``map_result`` becomes a lossless :class:`WireMapResult` view
+        (same digests, ``to_dict`` re-emits it unchanged).  The ``asm``
+        artifact is never serialized — re-run the assemble stage if it is
+        needed on this side of the boundary."""
+        if dfg is None and program is not None:
+            dfg = program.dfg
+        map_result = None
+        if d.get("map_result") is not None:
+            if dfg is None or grid is None:
+                map_result = WireMapResult(d["map_result"],
+                                           num_pes=d["rows"] * d["cols"])
+            else:
+                map_result = MapResult.from_dict(dfg, grid, d["map_result"])
+        metrics = None
+        if d.get("metrics"):
+            metrics = RuntimeMetrics(**d["metrics"])
+        return cls(
+            kernel=d["kernel"],
+            rows=d["rows"],
+            cols=d["cols"],
+            status=d["status"],
+            arch=d.get("arch"),
+            stage=d.get("stage"),
+            program=program,
+            map_result=map_result,
+            metrics=metrics,
+            error=d.get("error"),
+            cache_hit=d.get("cache_hit", False),
+            timings=dict(d.get("timings", {})),
+            failure=d.get("failure"),
+            retries=d.get("retries", 0),
+            degraded=d.get("degraded"),
+        )
 
     def summary(self) -> Dict:
         """Flat JSON-ready digest (the ``repro map --json`` document)."""

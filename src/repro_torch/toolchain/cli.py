@@ -1,23 +1,32 @@
 """``python -m repro_torch map``: compile one registry kernel end to end;
+``python -m repro_torch serve``: the compile server;
+``python -m repro_torch submit``: one request to a compile server;
 ``python -m repro_torch list``: name the registered kernels;
 ``python -m repro_torch arch {list,show}``: architecture presets and specs.
 
-Counterparts of the ``map``, ``list`` and ``arch`` verbs of
-``src/repro/toolchain/cli.py``::
+Counterparts of the ``map``, ``serve``, ``submit``, ``list`` and ``arch``
+verbs of ``src/repro/toolchain/cli.py``, with their flags and defaults::
 
     python -m repro_torch map gsm --grid 2x2 --json
     python -m repro_torch map dotprod --arch bordermem-4x4 --no-oracle
     python -m repro_torch map fir4 --strategy portfolio:cdcl-seq+cdcl-pair \
         --jobs 4 --cache-dir build/mapping_cache
+    python -m repro_torch serve --port 0 --inline --cache-dir build/serve
+    python -m repro_torch submit gsm --grid 2x2 --backend cdcl --json
     python -m repro_torch list --origin traced
     python -m repro_torch arch list
     python -m repro_torch arch show mesh-4x4:mem=col0,regs=8,ports=1/row
 
-It runs a :class:`~repro_torch.toolchain.session.Toolchain` compile
+``map`` runs a :class:`~repro_torch.toolchain.session.Toolchain` compile
 (source -> map -> assemble -> metrics) and prints a human summary or the
 JSON digest of ``python -m repro map --json``.  ``--strategy`` races a
 portfolio (on ``--jobs`` worker processes), and ``--cache-dir`` reads and
 writes the content-addressed mapping cache that both packages share.
+``serve`` and ``submit`` speak the wire protocol of
+:mod:`repro_torch.serve`, which is the JAX package's: either end may be
+either package's, and ``submit --json`` prints the document of ``python -m
+repro submit --json``.  Like ``map``, they run on the host and take no
+``--device``.
 """
 from __future__ import annotations
 
@@ -112,6 +121,141 @@ def main(argv: Optional[List[str]] = None) -> int:
     return 0 if cr.ok else 1
 
 
+def serve_main(argv: Optional[List[str]] = None) -> int:
+    """Start the compile server over TCP (``--port``) or on this process's
+    stdin/stdout (``--stdio``) and serve until a client sends
+    ``shutdown``."""
+    import asyncio
+
+    from ..serve.protocol import DEFAULT_PORT
+    from ..serve.server import CompileServer
+
+    sv = argparse.ArgumentParser(prog="python -m repro_torch serve",
+                                 description="start the compile server")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=None,
+                    help="TCP port (default: repro_torch.serve.DEFAULT_PORT;"
+                         " 0 = ephemeral)")
+    sv.add_argument("--stdio", action="store_true",
+                    help="serve one connection over stdin/stdout instead "
+                         "of TCP")
+    sv.add_argument("--arch", default="4x4",
+                    help="default architecture for the hello banner")
+    sv.add_argument("--jobs", type=int, default=None,
+                    help="warm solver workers (default: cpu count)")
+    sv.add_argument("--inline", action="store_true",
+                    help="thread-backed workers instead of processes (no "
+                         "fork; cooperative deadlines only)")
+    sv.add_argument("--backend", default="auto",
+                    choices=["auto", "cdcl", "z3"])
+    sv.add_argument("--timeout", type=float, default=120.0,
+                    help="per-request mapping budget in seconds "
+                         "(default 120)")
+    sv.add_argument("--ii-max", type=int, default=32)
+    sv.add_argument("--cache-dir", default=None,
+                    help="content-addressed mapping cache shared by all "
+                         "requests")
+    sv.add_argument("--tenant-budget", type=int, default=None,
+                    help="max concurrently-admitted requests per tenant "
+                         "(default: unlimited)")
+    sv.add_argument("--no-oracle", action="store_true",
+                    help="disable the assembler CEGAR oracle")
+    args = sv.parse_args(argv)
+
+    cfg = MapperConfig(backend=args.backend,
+                       per_ii_timeout_s=args.timeout / 2,
+                       total_timeout_s=args.timeout, ii_max=args.ii_max)
+    server = CompileServer(args.arch, cfg, cache=args.cache_dir,
+                           jobs=args.jobs, tenant_budget=args.tenant_budget,
+                           inline=args.inline,
+                           oracle=None if args.no_oracle else "assembler")
+    listen_port = args.port if args.port is not None else DEFAULT_PORT
+
+    async def run() -> None:
+        if args.stdio:
+            await server.serve_stdio()
+        else:
+            host, port = await server.start(args.host, listen_port)
+            print(f"repro-serve listening on {host}:{port} "
+                  f"(jobs={server.jobs}, arch={args.arch})",
+                  file=sys.stderr, flush=True)
+            await server.wait_closed()
+
+    try:
+        asyncio.run(run())
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
+    return 0
+
+
+def submit_main(argv: Optional[List[str]] = None) -> int:
+    """Send one compile request to a running server and print its result
+    as ``map`` prints one, plus how it was served."""
+    from ..serve.client import request_sync
+    from ..serve.protocol import DEFAULT_PORT
+    from .artifacts import CompileResult
+
+    sb = argparse.ArgumentParser(prog="python -m repro_torch submit",
+                                 description="send one request to a "
+                                             "compile server")
+    sb.add_argument("kernel", help="registered kernel name")
+    sb.add_argument("--host", default="127.0.0.1")
+    sb.add_argument("--port", type=int, default=None)
+    sb.add_argument("--grid", default="4x4")
+    sb.add_argument("--arch", default=None,
+                    help="architecture spec or preset (overrides --grid)")
+    sb.add_argument("--backend", default="auto",
+                    choices=["auto", "cdcl", "z3"])
+    sb.add_argument("--strategy", default=None,
+                    help="solver strategy / portfolio spec")
+    sb.add_argument("--timeout", type=float, default=None,
+                    help="override the server's mapping budget for this "
+                         "request")
+    sb.add_argument("--ii-max", type=int, default=None)
+    sb.add_argument("--priority", type=int, default=0,
+                    help="queue priority (higher runs sooner)")
+    sb.add_argument("--tenant", default="default",
+                    help="admission-budget bucket")
+    sb.add_argument("--json", action="store_true",
+                    help="print the JSON digest instead of a summary")
+    sb.add_argument("--out", default=None, help="also write the digest here")
+    sb.add_argument("--shutdown", action="store_true",
+                    help="ask the server to shut down after answering")
+    args = sb.parse_args(argv)
+
+    port = args.port if args.port is not None else DEFAULT_PORT
+    config = {}
+    if args.backend != "auto":
+        config["backend"] = args.backend
+    if args.timeout is not None:
+        config["total_timeout_s"] = args.timeout
+        config["per_ii_timeout_s"] = args.timeout / 2
+    if args.ii_max is not None:
+        config["ii_max"] = args.ii_max
+    resp = request_sync(args.kernel, host=args.host, port=port,
+                        shutdown=args.shutdown, arch=args.arch or args.grid,
+                        config=config or None, strategy=args.strategy,
+                        priority=args.priority, tenant=args.tenant)
+    if resp.get("type") != "result":
+        print(json.dumps(resp, indent=1, sort_keys=True), file=sys.stderr)
+        return 1
+    cr = CompileResult.from_dict(resp["result"])
+    doc = cr.summary()
+    doc["served"] = resp["served"]
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump(doc, fh, indent=1, sort_keys=True)
+    if args.json:
+        print(json.dumps(doc, indent=1, sort_keys=True))
+    else:
+        _print_human(cr)
+        print(f"  served={resp['served']}")
+    return 0 if cr.ok else 1
+
+
 def list_main(argv: Optional[List[str]] = None) -> int:
     """The registered kernels in registration order, one per line with its
     origin, then their count."""
@@ -127,7 +271,6 @@ def list_main(argv: Optional[List[str]] = None) -> int:
         print(f"{name:16s} {spec.origin}")
     print(f"{len(names)} kernels")
     return 0
-
 
 
 def _cmd_arch_list(args) -> int:

@@ -24,8 +24,8 @@ because there is no shared pool state to break.
 thread-safe (a self-pipe wakes the multiplexer), eligible tasks are
 assigned to idle slots highest-:attr:`MapTask.priority` first, and
 ``start()`` moves the multiplexer onto a daemon thread so a long-lived
-embedder (the JAX package's compile server, ``src/repro/serve``, not
-ported yet) keeps warm solver workers across requests.
+embedder (the compile server, :mod:`repro_torch.serve`) keeps warm
+solver workers across requests.
 :func:`run_supervised` is a thin batch adapter — create, submit
 everything, drain, shut down.
 

@@ -721,7 +721,8 @@ class Toolchain:
         :class:`~repro_torch.toolchain.resilience.WorkerPool`) -> a finished
         :class:`CompileResult`, with the parent-side cache write
         (terminal, non-degraded verdicts only, when ``cache_key`` is
-        given) and the post-map stages, for ``compile_many``."""
+        given) and the post-map stages.  Shared by ``compile_many`` and
+        the :mod:`repro_torch.serve` compile server."""
         cr = CompileResult(
             kernel=prog.name,
             rows=self.grid.spec.rows,

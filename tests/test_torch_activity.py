@@ -100,6 +100,18 @@ def test_popcount32_counts_the_low_32_bits():
     assert activity.popcount32(torch.as_tensor(x)).tolist() == want
 
 
+def test_popcount_u32_equals_the_reference_and_the_device_popcount():
+    rng = np.random.RandomState(1)
+    x = rng.randint(0, 2**32, size=(64, 33), dtype=np.uint64).astype(
+        np.uint32)
+    x[0, :3] = (0, 2**32 - 1, 2**31)
+    got = activity.popcount_u32(x)
+    assert got.dtype == np.int64 and got.shape == x.shape
+    assert np.array_equal(got, jax_activity.popcount_u32(x))
+    assert got.tolist() == activity.popcount32(
+        torch.as_tensor(x.astype(np.int64))).tolist()
+
+
 @pytest.mark.parametrize("arch,kernel", SHIPPED)
 def test_runtime_metrics_match_jax(arch, kernel):
     art = load_artifact(arch, kernel)

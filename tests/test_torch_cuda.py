@@ -1,8 +1,9 @@
 """The CUDA kernels (cycle step and whole-program run, single and stacked)
 against their plain PyTorch versions, and the fuzz path's stacked run,
 activity harvest and triage, a kernel the port mapped itself, and the
-traced front-end's co-simulation, swept points of the size ladder and a
-heuristic-baseline mapping, against the CPU path, on the card.
+traced front-end's co-simulation, swept points of the size ladder, a
+heuristic-baseline mapping and a mapping the compile server served,
+against the CPU path, on the card.
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode): they
 carry the ``cuda`` marker and skip elsewhere.  They import nothing of
 JAX, so they run where only the port is installed::
@@ -478,3 +479,42 @@ def test_routing_free_heuristic_mapping_runs_on_the_card(cuda):
     assert run_cycles.launches == before + 2
     cpu = fuzz_program(art, mems[:256], batch=256, device="cpu")
     assert (cpu.status, cpu.failing) == ("ok", [])
+
+
+def test_served_mapping_fuzzes_from_the_server_cache(cuda, tmp_path):
+    """gsm served by the port's compile server (two worker processes
+    forked after a launch) fuzzes ``ok`` on the card from the server's
+    cache: the map is a hit, at the served II."""
+    import asyncio
+
+    from repro_torch.dse import MappingCache
+    from repro_torch.serve import CompileServer, ServeClient
+
+    _launch_first(cuda)
+    cache_dir = str(tmp_path / "cache")
+
+    async def serve_once():
+        server = CompileServer(jobs=2, cache=cache_dir)
+        try:
+            host, port = await server.start()
+            client = await ServeClient.connect(host, port)
+            try:
+                return await client.compile("gsm", arch="4x4",
+                                            config=CDCL_BUDGET)
+            finally:
+                await client.close()
+        finally:
+            server.close()
+
+    cr, served = asyncio.run(serve_once())
+    assert served == "compiled" and cr.ok
+    cache = MappingCache(cache_dir)
+    before = run_cycles.launches
+    rep = fuzz_kernel("gsm", "4x4", memories=2048, batch=1024,
+                      config=MapperConfig(**CDCL_BUDGET), cache=cache,
+                      device=cuda)
+    assert rep.status == "ok" and rep.failing == [], rep.mismatches[:2]
+    assert rep.backend == "cuda" and rep.ii == cr.ii
+    assert run_cycles.launches == before + 2
+    stats = cache.stats()
+    assert (stats["hits"], stats["misses"]) == (1, 0)

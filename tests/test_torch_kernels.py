@@ -272,3 +272,12 @@ def test_run_program_matches_jax_property(seed):
                                           nbrs, backend="ref")
     np.testing.assert_array_equal(outs.numpy(), np.asarray(j_outs))
     _assert_state_equal(final, j_final)
+
+
+def test_isa_op_classes_equal_the_jax_package():
+    from repro.cgra import isa as jax_isa
+    from repro_torch.cgra import isa
+
+    for name in ("OPS", "OPCODE", "LOAD_OPS", "STORE_OPS", "FLAG_SELECT_OPS",
+                 "MUL_OPS"):
+        assert getattr(isa, name) == getattr(jax_isa, name), name
