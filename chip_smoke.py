@@ -17,13 +17,22 @@ per line:
       ``run_program`` (one whole-program launch each) against a loop of
       the plain step;
    c. the whole-program run against its plain version and against a chain
-      of cycle-step launches, trace and final state bit-equal: random
-      programs of 64 rows on the same grid of shapes, plus programs of 0
-      and 1 rows and an all-NOP program;
+      of cycle-step launches, trace and final state bit-equal, traced and
+      untraced: random programs of 64 rows on the same grid of shapes,
+      plus programs of 0 and 1 rows and an all-NOP program; then the
+      hazard programs of ``sample.HAZARDS`` (all-NOP rows mid program,
+      trailing NOP rows, a load in row t + 1 of what row t stored, from the
+      same PE and another, stores and loads over every address of M) at P
+      in {4, 9, 16, 25, 36, 64} and B in {37, 1001}, not multiples of a
+      block's rows, each in both layouts of the run where the shape takes
+      the lane layout (P <= 32); then programs that run from a ring of two
+      chunks and memory images kept in device memory (``RING_CASES``);
    d. the stacked run (K programs of one grid in one launch) against its
       plain version and against K single whole-program launches, trace and
       final state bit-equal: random programs of different lengths,
-      NOP-padded, K in {1, 2, 5}, P in {9, 16}, B in {1, 37, 1000};
+      NOP-padded, K in {1, 2, 5}, P in {9, 16}, B in {1, 37, 1000}; then
+      stacks of the hazard programs with lengths from 0 to T_max, at the
+      hazard P and B, in both layouts as in c;
 4. the map phase: the port's own ``Toolchain`` maps and assembles all 16
    shipped kernels (fir4 included) on the host with the CDCL backend that
    made them (``MAP_CONFIG``), each fresh artifact equal to the committed
@@ -42,9 +51,11 @@ per line:
    cache (its time to a verdict includes the mapping), 2048 memories in
    batches of 1024, every verdict ``ok`` and equal to the status of the
    same kernel in ``results/BENCH_fuzz.json``; the whole-program kernel
-   must launch once per batch chunk and the cycle step never;
+   must launch once per batch chunk, in the lane layout, and the cycle
+   step never;
    b. the stacked main path: ``fuzz_stacked`` on the 15 4x4 artifacts x
-      2048 seed-0 memories, one launch, every verdict ``ok`` and its
+      2048 seed-0 memories, one launch in the uniform layout, every
+      verdict ``ok`` and its
       failing memories equal to phase 4's and to ``stacked_failing`` in
       ``results/BENCH_fuzz.json``;
    c. activity and energy: every phase 4 report carries both; for gsm,
@@ -63,13 +74,22 @@ per line:
 6. times at B in {1024, 16384}: the cycle step per launch on a random row
    (P=16, M=128), and the whole-program run on gsm's program (T=84), each
    as device time under ``torch.profiler`` and at the host's issue pace
-   with CUDA events, beside its byte bound and its plain version; for the
-   whole-program run also the serial floor (an all-NOP program of the same
-   length, no trace); and the stacked run of the 15 4x4 programs at
-   B=2048 (T=112), first held bit-equal, trace and final state, to its
+   with CUDA events, beside its plain version and its bound, the larger
+   of its bytes over the HBM rate and its int32 operations over the INT32
+   rate (``bound_by`` names which); for the whole-program run also the
+   serial floor (every cell a live SADD of ZERO, no trace), the all-NOP
+   program, µs per cycle and the device time of the layout the shape
+   does not choose; and the stacked run of the 15 4x4 programs
+   at B=2048 (T=112), first held bit-equal, trace and final state, to its
    plain version and to 15 single launches at that shape, then timed
-   beside its byte bound, its serial floor, those 15 single launches and
-   its plain version;
+   beside the same, those 15 single launches and its plain version.  With
+   ``--parent DIR`` (a copy of the parent commit's
+   ``src/repro_torch/kernels``, e.g. ``git archive HEAD~1
+   src/repro_torch/kernels | tar -x -C build/parent --strip-components=2``
+   and ``--parent build/parent/kernels``), the parent's whole-program
+   kernel is held bit-equal and timed in turns with this one (parent,
+   new, new, parent) in each of these readings, host pace included, and
+   the records gain the ``parent_*`` and ``turns_*`` keys;
 7. mapping at scale, forked after CUDA is up:
    a. the fleet: ``compile_many`` over the 16 shipped (kernel, arch)
       points on min(8, CPUs) workers into a fresh cache, 16 of 16 ``ok``
@@ -111,10 +131,13 @@ per line:
       own II, ``stats``, ``--shutdown``); then every point the server
       mapped fuzzed on the card from its cache (every map a hit), ``ok``;
 9. the kernels line (the whole-program run's launches summed over the
-   paths that run it, and given per path), then the device line last.
+   paths that run it, and given per path and, where counted, per layout;
+   each layout must have run on the main path), then the device line
+   last.
 
 Any failure raises and exits non-zero.  Without CUDA it exits 1 and
-prints no result.
+prints no result.  Run with no arguments it needs one card and nothing but
+the checkout.
 """
 from __future__ import annotations
 
@@ -130,8 +153,29 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+#: H100 SXM: 132 SMs x 64 INT32 lanes at the 1.98 GHz boost clock
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: int32 operations of one executed PE-cycle: two source selects, the ALU
+#: op, the address and its clamp, two flags, the OUT write (the note of
+#: csrc/pe_array.cu)
+INT_OPS_PER_PE_CYCLE = 8
 SWEEP_STEPS = 64
+#: phases 3c/3d: the hazard programs run at these P (one above 36, where a
+#: warp runs two PEs) and batches that are not a multiple of a block's rows
+HAZARD_PES = (4, 9, 16, 25, 36, 64)
+HAZARD_BATCHES = (37, 1001)
+#: a stack's program lengths, in eighths of T_max: 0 to T_max
+HAZARD_LENGTHS = (0, 1, 3, 4, 7, 8)
+#: (P, M, B, T) of phase 3c that run from a ring of two program chunks, or
+#: keep the memory image in device memory (the last, M near 227 KB)
+RING_CASES = ((16, 128, 1000, 300), (36, 128, 37, 400), (4, 58_000, 3, 16),
+              (16, 58_080, 8, 16))
 MAIN_MEMORIES, MAIN_BATCH = 2048, 1024
+#: run_cycles launches by layout in the phases that count them (the fuzz
+#: main path, cold and warm, the sweep's fuzz runs and the stacked path)
+LAYOUT_LAUNCHES = {}
+#: ``Geometry.layout`` by name: run_cycles_kernel, run_lanes_kernel
+LAYOUT_NAMES = ("uniform", "lane")
 STACK_ARCH = "4x4"                 # the stacked rung of BENCH_fuzz.json
 ACTIVITY_KERNELS = (("4x4", "gsm"), ("4x4", "fir4"), ("3x3", "sqrt"))
 #: the mapper budget of ``fuzz_kernel`` and the artifact exporter, with
@@ -233,6 +277,75 @@ def program_bytes(T: int, B: int, P: int, M: int, trace: bool = True) -> int:
     once, the (T, B, P) trace written once, the five (T, P) instruction
     fields read once."""
     return state_bytes(B, P, M) + 4 * T * B * P * trace + 20 * T * P
+
+
+def program_ops(fields, B: int) -> int:
+    """int32 operations a whole-program run must do on these inputs:
+    ``INT_OPS_PER_PE_CYCLE`` for every executed (non-NOP) instruction of
+    the program (or stack), for each of the B batch rows."""
+    return INT_OPS_PER_PE_CYCLE * int((fields.op != 0).sum()) * B
+
+
+def bound(bytes_: int, ops: int):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the int32 operations over the INT32 rate."""
+    by_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / INT32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                          "operations")
+
+
+def parent_kernels(path):
+    """The parent commit's ``repro_torch/kernels`` package, copied to
+    ``path``, loaded beside the current one as
+    ``repro_torch.parent_kernels`` (its ``build`` compiles its own source
+    into the same cache, under its own hash).  Returns its ``pe_array``
+    module, or None without a path."""
+    import importlib
+    import importlib.util
+
+    if path is None:
+        return None
+    path = Path(path).resolve()
+    check((path / "pe_array.py").is_file() and (path / "csrc").is_dir(),
+          f"--parent {path}: not a copy of src/repro_torch/kernels")
+    name = "repro_torch.parent_kernels"
+    spec = importlib.util.spec_from_file_location(
+        name, path / "__init__.py", submodule_search_locations=[str(path)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module(name + ".pe_array")
+
+
+def in_turns(measure, new_fn, parent_fn):
+    """``measure`` of the parent's and the new call in turns (parent, new,
+    new, parent): (new mean, parent mean, [the four readings]); the parent
+    entries are None without a parent."""
+    if parent_fn is None:
+        return measure(new_fn), None, None
+    turns = [measure(parent_fn), measure(new_fn), measure(new_fn),
+             measure(parent_fn)]
+    return ((turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2,
+            [t * 1e3 for t in turns])
+
+
+def parent_fields(parent, device_ms_, paced_ms, floor_ms, nop_ms, turns,
+                  paced_turns, **more):
+    """The readings of the parent's kernel for a timing record: none
+    without a parent."""
+    if parent is None:
+        return {}
+    return {"parent_device_us": us(device_ms_),
+            "parent_host_paced_us": us(paced_ms),
+            "parent_serial_floor_device_us": us(floor_ms),
+            "parent_nop_program_device_us": us(nop_ms),
+            "turns_device_us": turns, "turns_host_paced_us": paced_turns,
+            **more}
+
+
+def us(ms):
+    return None if ms is None else ms * 1e3
 
 
 def map_config(**overrides):
@@ -391,73 +504,126 @@ def run_cycles_vs_plain(device) -> int:
     """Phase 3c: the whole-program kernel against its plain version and a
     chain of cycle-step launches, on random programs (64 rows, the 3a grid
     of shapes, other seeds), programs of 0 and 1 rows and an all-NOP
-    program.  Returns the largest absolute difference seen."""
+    program; then the hazard programs of ``sample.HAZARDS`` (NOP rows mid
+    program and at the tail, a load right after a store from the same PE
+    and another, stores and loads over every address) at every P of
+    ``HAZARD_PES`` and batches that are not a multiple of the block's rows,
+    in each layout that takes the shape; then programs that run from a ring of two chunks and memory images
+    that stay in device memory (``RING_CASES``).  Returns the largest
+    absolute difference seen."""
     import numpy as np
     import torch
     from repro_torch.cgra.arch import neighbor_table
     from repro_torch.cgra.isa import OPCODE
-    from repro_torch.kernels.pe_array import cycle_step, run_cycles
+    from repro_torch.kernels.pe_array import (UNIFORM_LAYOUT, cycle_step,
+                                              run_cycles,
+                                              run_cycles_geometry)
     from repro_torch.kernels.ref import InstrRow, PEState, run_cycles_ref
-    from repro_torch.kernels.sample import random_fields, random_state
+    from repro_torch.kernels.sample import (HAZARDS, hazard_fields,
+                                            random_fields, random_state)
 
-    cases = [(P, M, B, SWEEP_STEPS, False) for P in (4, 9, 16, 25, 36)
+    cases = [(P, M, B, SWEEP_STEPS, "random") for P in (4, 9, 16, 25, 36)
              for M in (64, 128, 256) for B in (1, 37, 1000, 4096)]
-    cases += [(P, 128, 1000, T, nop) for P in (4, 16, 36)
-              for T, nop in ((0, False), (1, False), (SWEEP_STEPS, True))]
+    cases += [(P, 128, 1000, T, kind) for P in (4, 16, 36)
+              for T, kind in ((0, "random"), (1, "random"),
+                              (SWEEP_STEPS, "all_nop"))]
+    cases += [(P, 128, B, SWEEP_STEPS, kind) for P in HAZARD_PES
+              for B in HAZARD_BATCHES for kind in HAZARDS]
+    cases += [(P, M, B, T, "ring") for P, M, B, T in RING_CASES]
     worst = 0
+    kinds = {}
+    layout_runs = {}
+    want = 0
     t0 = time.monotonic()
     before = run_cycles.launches
-    for P, M, B, T, nop in cases:
+    for P, M, B, T, kind in cases:
+        layouts = (hazard_layouts(P, M) if kind in HAZARDS
+                   else (UNIFORM_LAYOUT,) if kind == "ring" else (None,))
         nbr = torch.as_tensor(np.asarray(neighbor_table(grid_for(P)),
                                          np.int32), device=device)
         rng = np.random.RandomState(7 + P * 100_003 + M * 101 + B + T)
-        f = random_fields(rng, T, P, M, full_encoding=True)
-        if nop:
+        if kind in HAZARDS:
+            f = hazard_fields(rng, kind, T, P, M)
+        else:
+            f = random_fields(rng, T, P, M, full_encoding=True)
+        if kind == "all_nop":
             f["op"][:] = OPCODE["NOP"]
+        if kind == "ring":
+            geom = run_cycles_geometry(B, P, M, T=T, layout=UNIFORM_LAYOUT)
+            check(geom.chunk_rows < T or not geom.memory_in_shared,
+                  f"P={P} M={M} B={B} T={T} is not a ring or device-memory "
+                  f"case: {geom}")
+            f["op"][T // 2:T // 2 + 40] = OPCODE["NOP"]
+        kinds[kind] = kinds.get(kind, 0) + 1
         f = tensors(f, device)
         fields = InstrRow(*(f[k] for k in InstrRow._fields))
         state = PEState(**tensors(random_state(rng, B, P, M), device))
-        final, outs = run_cycles(fields, state, nbr)
         plain, plain_outs = run_cycles_ref(fields, state, nbr)
-        chain = state
+        chain, chain_outs = state, []
         for t in range(T):
             chain = cycle_step(chain, InstrRow(*(x[t] for x in fields)), nbr)
-            diff = max_diff(outs[t], chain.out)
+            chain_outs.append(chain.out)
+        for layout in layouts:
+            what = f"{kind} P={P} M={M} B={B} T={T} layout={layout}"
+            final, outs = run_cycles(fields, state, nbr, layout=layout)
+            lname = LAYOUT_NAMES[run_cycles_geometry(B, P, M, 1, T,
+                                                     layout).layout]
+            layout_runs[lname] = layout_runs.get(lname, 0) + (T > 0)
+            for t in range(T):
+                diff = max_diff(outs[t], chain_outs[t])
+                worst = max(worst, diff)
+                check(diff == 0, f"{what}: out at row {t} differs from the "
+                                 f"cycle-step chain by {diff}")
+            check(tuple(outs.shape) == (T, B, P),
+                  f"trace shape {outs.shape}")
+            diff = max_diff(outs, plain_outs)
             worst = max(worst, diff)
-            check(diff == 0, f"P={P} M={M} B={B} T={T}: out at row {t} "
-                             f"differs from the cycle-step chain by {diff}")
-        check(tuple(outs.shape) == (T, B, P), f"trace shape {outs.shape}")
-        diff = max_diff(outs, plain_outs)
-        worst = max(worst, diff)
-        check(diff == 0, f"P={P} M={M} B={B} T={T}: trace differs from "
-                         f"the plain version by {diff}")
-        for name, a, b, c in zip(PEState._fields, final, plain, chain):
-            diff = max(max_diff(a, b), max_diff(a, c))
-            worst = max(worst, diff)
-            check(diff == 0, f"P={P} M={M} B={B} T={T}: final {name} "
-                             f"differs by {diff}")
+            check(diff == 0, f"{what}: trace differs from the plain version "
+                             f"by {diff}")
+            untraced, _ = run_cycles(fields, state, nbr, trace=False,
+                                     layout=layout)
+            for name, a, b, c, d in zip(PEState._fields, final, plain, chain,
+                                        untraced):
+                diff = max(max_diff(a, b), max_diff(a, c), max_diff(a, d))
+                worst = max(worst, diff)
+                check(diff == 0, f"{what}: final {name} differs by {diff}")
+            want += 2 * (T > 0)
     launches = run_cycles.launches - before
-    want = sum(1 for case in cases if case[3] > 0)
     check(launches == want, f"run_cycles launched {launches} times for "
-                            f"{want} programs with rows")
+                            f"{want // 2} runs with rows, traced and not")
+    check(all(layout_runs.get(n, 0) > 0 for n in LAYOUT_NAMES),
+          f"phase 3c ran a layout no time: {layout_runs}")
     emit({"phase": "run_cycles_vs_plain", "cases": len(cases),
+          "cases_by_kind": kinds, "runs_by_layout": layout_runs,
+          "hazard_pes": list(HAZARD_PES),
           "rows_each": SWEEP_STEPS, "run_cycles_launches": launches,
           "max_abs_err": worst, "seconds": round(time.monotonic() - t0, 3)})
     return worst
 
 
-def check_stack(fields, state, nbr, singles, what: str) -> int:
-    """One stacked launch of NOP-padded programs against the plain version
-    and against a single launch of each unpadded program (``singles``):
-    trace, padding rows and every final-state tensor bit-equal.  Returns
-    the largest absolute difference seen (0, or it raises)."""
+def hazard_layouts(P: int, M: int):
+    """The layouts a hazard program runs in: the uniform one, and the lane
+    one where P PEs over M words fit it."""
+    from repro_torch.kernels.pe_array import (LANE_LAYOUT, UNIFORM_LAYOUT,
+                                              lanes_fit)
+
+    return (UNIFORM_LAYOUT,) + ((LANE_LAYOUT,) if lanes_fit(P, M) else ())
+
+
+def check_stack(fields, state, nbr, singles, what: str,
+                layout=None) -> int:
+    """One stacked launch of NOP-padded programs (in ``layout``, or the
+    one chosen for the shape) against the plain version and against a
+    single launch of each unpadded program (``singles``): trace, padding
+    rows and every final-state tensor bit-equal.  Returns the largest
+    absolute difference seen (0, or it raises)."""
     from repro_torch.kernels.pe_array import run_cycles
     from repro_torch.kernels.ref import PEState, run_stacked_ref
 
     K, T_max, P = fields.op.shape
     B = state.out.shape[1]
     before = run_cycles.launches
-    final, outs = run_cycles(fields, state, nbr)
+    final, outs = run_cycles(fields, state, nbr, layout=layout)
     check(run_cycles.launches - before == 1,
           f"{what}: the stack took {run_cycles.launches - before} "
           f"launches, not 1")
@@ -478,7 +644,8 @@ def check_stack(fields, state, nbr, singles, what: str) -> int:
                                      nbr)
         diff = max_diff(outs[k, :T], s_outs)
         if T < T_max:      # a padding row repeats the program's last row
-            diff = max(diff, max_diff(outs[k, T:], s_outs[-1:].expand(
+            last = s_outs[-1] if T else state.out[k]
+            diff = max(diff, max_diff(outs[k, T:], last.expand(
                 T_max - T, B, P)))
         for a, b in zip(final, s_final):
             diff = max(diff, max_diff(a[k], b))
@@ -491,27 +658,39 @@ def check_stack(fields, state, nbr, singles, what: str) -> int:
 def stacked_vs_plain(device) -> int:
     """Phase 3d: the stacked whole-program kernel (K programs of different
     lengths, NOP-padded, in one launch) against its plain version and
-    against K single launches of the unpadded programs.  Returns the
-    largest absolute difference seen."""
+    against K single launches of the unpadded programs: random programs,
+    then stacks of the hazard programs whose lengths run from 0 to T_max,
+    at every P of ``HAZARD_PES``, in each layout that takes the shape.
+    Returns the largest absolute difference seen."""
     import numpy as np
     import torch
     from repro_torch.cgra.arch import neighbor_table
     from repro_torch.fuzz.engine import _pad_fields
     from repro_torch.kernels.ref import InstrRow, PEState
-    from repro_torch.kernels.sample import random_fields, random_state
+    from repro_torch.kernels.sample import (HAZARDS, hazard_fields,
+                                            random_fields, random_state)
 
     M = 128
-    cases = [(K, P, B) for K in (1, 2, 5) for P in (9, 16)
+    cases = [(K, P, B, "random", None) for K in (1, 2, 5) for P in (9, 16)
              for B in (1, 37, 1000)]
+    cases += [(len(HAZARD_LENGTHS), P, B, "hazard", layout)
+              for P in HAZARD_PES for B in HAZARD_BATCHES
+              for layout in hazard_layouts(P, M)]
     worst = 0
     t0 = time.monotonic()
-    for K, P, B in cases:
+    for K, P, B, kind, layout in cases:
         nbr = torch.as_tensor(np.asarray(neighbor_table(grid_for(P)),
                                          np.int32), device=device)
         rng = np.random.RandomState(11 + K * 1009 + P * 101 + B)
-        lengths = [SWEEP_STEPS * (5 - k) // 5 for k in range(K)]
-        progs = [random_fields(rng, T, P, M, full_encoding=True)
-                 for T in lengths]
+        if kind == "random":
+            lengths = [SWEEP_STEPS * (5 - k) // 5 for k in range(K)]
+            progs = [random_fields(rng, T, P, M, full_encoding=True)
+                     for T in lengths]
+        else:
+            lengths = [SWEEP_STEPS * n // 8 for n in HAZARD_LENGTHS]
+            progs = [{k: v[:T] for k, v in hazard_fields(
+                rng, HAZARDS[i % len(HAZARDS)], SWEEP_STEPS, P, M).items()}
+                for i, T in enumerate(lengths)]
         states = [random_state(rng, B, P, M) for _ in range(K)]
         singles = [InstrRow(*(torch.as_tensor(f[n], device=device)
                               for n in InstrRow._fields)) for f in progs]
@@ -520,9 +699,11 @@ def stacked_vs_plain(device) -> int:
         state = PEState(*(torch.as_tensor(np.stack([s[k] for s in states]),
                                           device=device)
                           for k in PEState._fields))
-        worst = max(worst, check_stack(fields, state, nbr, singles,
-                                       f"K={K} P={P} B={B}"))
+        worst = max(worst, check_stack(
+            fields, state, nbr, singles,
+            f"{kind} K={K} P={P} B={B} layout={layout}", layout))
     emit({"phase": "stacked_vs_plain", "cases": len(cases),
+          "hazard_lengths": [SWEEP_STEPS * n // 8 for n in HAZARD_LENGTHS],
           "rows_max": SWEEP_STEPS, "stacked_launches": len(cases),
           "max_abs_err": worst, "seconds": round(time.monotonic() - t0, 3)})
     return worst
@@ -682,12 +863,15 @@ def main_path(artifacts, device, cache, warm=False):
     t0 = time.monotonic()
     with recorded_artifacts() as made:
         cycle_step.launches = run_cycles.launches = 0
+        run_cycles.lane_launches = 0
         reports = [fuzz_kernel(a.kernel, a.arch, memories=MAIN_MEMORIES,
                                batch=MAIN_BATCH, seed=0, config=map_config(),
                                cache=cache, device=device)
                    for a in artifacts]
         steps, runs = cycle_step.launches, run_cycles.launches
+        lanes = run_cycles.lane_launches
     wall = time.monotonic() - t0
+    LAYOUT_LAUNCHES[phase] = {"lane": lanes, "uniform": runs - lanes}
     for rep in reports:
         emit({"phase": "fuzz_warm" if warm else "fuzz", "kernel": rep.kernel,
               "arch": rep.arch,
@@ -705,11 +889,14 @@ def main_path(artifacts, device, cache, warm=False):
           f"run_cycles launched {runs} times, not once for each of "
           f"{len(artifacts) * chunks} batch chunks")
     check(steps == 0, f"cycle_step launched {steps} times on the main path")
+    check(lanes == runs, f"{phase}: {runs - lanes} of {runs} launches at "
+                         f"B={MAIN_BATCH} left the lane layout")
     check(sorted(made) == sorted(a.kernel for a in artifacts),
           f"{phase}: fuzz_kernel built artifacts for {sorted(made)}")
     emit({"phase": phase, "kernels": len(reports),
           "memories_each": MAIN_MEMORIES, "batch": MAIN_BATCH,
           "run_cycles_launches": runs, "cycle_step_launches": steps,
+          "layout_launches": LAYOUT_LAUNCHES[phase],
           "rows_run": rows_run, "cache": cache.stats(),
           "cache_entries": len(cache),
           "map_seconds": round(sum(r.map_time_s for r in reports), 3),
@@ -1063,6 +1250,7 @@ def sweep_phase(device):
             worst = max(worst, shape_vs_plain(row, cfg, cache_dir, device))
     cache = MappingCache(cache_dir)
     cycle_step.launches = run_cycles.launches = 0
+    run_cycles.lane_launches = 0
     t1 = time.monotonic()
     verdicts = {}
     for row in rows:
@@ -1106,6 +1294,8 @@ def sweep_phase(device):
               if (r["kernel"], r["size"]) in REFERENCE_MISMATCHES),
           "sweep: a point of REFERENCE_MISMATCHES did not map")
     steps, runs = cycle_step.launches, run_cycles.launches
+    lanes = run_cycles.lane_launches
+    LAYOUT_LAUNCHES["sweep"] = {"lane": lanes, "uniform": runs - lanes}
     stats = cache.stats()
     check(stats["hits"] == len(mapped) and stats["misses"] == 0,
           f"sweep fuzz: cache {stats} for {len(mapped)} mapped points")
@@ -1130,7 +1320,7 @@ def sweep_phase(device):
                                    for k, s in REFERENCE_MISMATCHES],
           "fuzz_cache_hits": stats["hits"],
           "new_shapes_vs_plain": shapes, "run_cycles_launches": runs,
-          "jobs": jobs, "sweep_seconds": round(sweep_s, 3),
+          "layout_launches": LAYOUT_LAUNCHES["sweep"], "jobs": jobs, "sweep_seconds": round(sweep_s, 3),
           "sweep_wall_time_s": doc["wall_time_s"],
           "map_seconds_summed": round(sum(r["map_time_s"] for r in rows), 3),
           "fuzz_seconds": round(fuzz_s, 3)})
@@ -1587,9 +1777,13 @@ def stacked_main_path(artifacts, single_reports, device) -> int:
     mems = np.stack([make_corpus(a, MAIN_MEMORIES, seed=0) for a in stack])
     t0 = time.monotonic()
     cycle_step.launches = run_cycles.launches = 0
+    run_cycles.lane_launches = 0
     reports = fuzz_stacked(stack, mems, device=device)
     steps, runs = cycle_step.launches, run_cycles.launches
+    lanes = run_cycles.lane_launches
     wall = time.monotonic() - t0
+    LAYOUT_LAUNCHES["stacked_main_path"] = {"lane": lanes,
+                                            "uniform": runs - lanes}
     for rep in reports:
         check(rep.status == "ok" and rep.backend == "cuda",
               f"stacked {rep.kernel}: {rep.status} {rep.mismatches[:2]}")
@@ -1600,12 +1794,15 @@ def stacked_main_path(artifacts, single_reports, device) -> int:
               f"stacked {rep.kernel}: failing {rep.failing} != "
               f"BENCH_fuzz.json {stacked_failing.get(rep.kernel)}")
     check(runs == 1, f"fuzz_stacked launched run_cycles {runs} times")
+    check(lanes == 0, "the stack of 15 x 2048 memories ran in the lane "
+                      "layout")
     check(steps == 0, f"cycle_step launched {steps} times on the stack")
     emit({"phase": "stacked_main_path", "kernels": len(reports),
           "memories_each": MAIN_MEMORIES,
           "t_max": max(a.asm.total_rows for a in stack),
           "rows_real": sum(a.asm.total_rows for a in stack),
           "run_cycles_launches": runs, "cycle_step_launches": steps,
+          "layout_launches": LAYOUT_LAUNCHES["stacked_main_path"],
           "exec_time_s_each": reports[0].exec_time_s,
           "mem_rate": [r.mem_rate for r in reports],
           "seconds": round(wall, 3)})
@@ -1752,8 +1949,10 @@ def on_device(prof):
 def profile_phase(device) -> None:
     """Phase 5b: device busy time of one main-path fuzz run (gsm, 2048
     memories, batch 1024) under ``torch.profiler``: the kernel's device
-    time per launch and the device's idle share of the run's wall time
-    (the profiler's own host overhead lengthens that wall time)."""
+    time per launch (``run_lanes_kernel`` there, counted with
+    ``run_cycles_kernel`` under the old key) and the device's idle share
+    of the run's wall time (the profiler's own host overhead lengthens
+    that wall time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.cgra.artifact import load_artifact
@@ -1774,19 +1973,25 @@ def profile_phase(device) -> None:
 
     events = on_device(prof)
     busy_us = sum(device_us(e) for e in events)
-    fused = [e for e in events if "run_cycles_kernel" in e.key]
+    fused = [e for e in events if "run_cycles_kernel" in e.key
+             or "run_lanes_kernel" in e.key]
     steps = [e for e in events if "cycle_step_kernel" in e.key]
     launches = sum(e.count for e in fused)
+    lanes = sum(e.count for e in fused if "run_lanes_kernel" in e.key)
     fused_us = sum(device_us(e) for e in fused)
     chunks = -(-MAIN_MEMORIES // MAIN_BATCH)
-    check(launches == chunks, f"profile saw {launches} run_cycles_kernel "
-                              f"launches, not {chunks}")
+    check(launches == chunks, f"profile saw {launches} launches of "
+                              f"run_cycles' kernels, not {chunks}")
+    check(lanes == launches, f"profile: {launches - lanes} of {launches} "
+                             f"launches at B={MAIN_BATCH} left the lane "
+                             f"layout")
     check(not steps, "profile saw cycle_step_kernel on the main path")
     emit({"phase": "profile", "kernel": "gsm", "memories": MAIN_MEMORIES,
           "batch": MAIN_BATCH, "wall_us": wall_us,
           "device_busy_us": busy_us,
           "idle_share": (1 - busy_us / wall_us) if busy_us else None,
           "run_cycles_kernel_launches": launches,
+          "run_lanes_kernel_launches": lanes,
           "run_cycles_kernel_device_us_per_launch": fused_us / launches,
           "top": [(e.key[:80], e.count, device_us(e)) for e in sorted(
               events, key=device_us, reverse=True)[:6]]})
@@ -1817,21 +2022,26 @@ def host_paced_ms(fn, calls: int, reps: int) -> float:
 def device_ms(fn, calls: int, warmup: int = 3) -> float:
     """Milliseconds of device time per call of ``fn``: the GPU time of
     every kernel and copy it ran, over ``calls`` calls, under
-    ``torch.profiler`` (gaps between launches left out)."""
+    ``torch.profiler`` (gaps between launches left out).  A window in which
+    the profiler recorded no device time is taken again, up to three
+    times; then the phase fails, as a time paced by the host is not
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(device_us(e) for e in on_device(prof))
-    check(busy_us > 0, "the profiler recorded no device time")
-    return busy_us / calls / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = sum(device_us(e) for e in on_device(prof))
+        if busy_us > 0:
+            return busy_us / calls / 1e3
+    check(False, "the profiler recorded no device time in three windows")
 
 
 def timing(device):
@@ -1881,26 +2091,44 @@ def timing(device):
     return out
 
 
-def program_timing(device, step_times):
+def floor_programs(fields):
+    """The serial floors of a program's shape, without a trace: every cell
+    an SADD of ZERO and ZERO that writes no register (T live rows, one
+    barrier each, no memory), and every cell a NOP."""
+    import torch
+    from repro_torch.cgra.isa import DST_NONE, OPCODE, SRC_ZERO
+
+    def full(v):
+        return torch.full_like(fields.op, v)
+
+    live = fields._replace(op=full(OPCODE["SADD"]), dst=full(DST_NONE),
+                           sa=full(SRC_ZERO), sb=full(SRC_ZERO))
+    return live, fields._replace(op=torch.zeros_like(fields.op))
+
+
+def program_timing(device, step_times, parent=None):
     """Phase 6b: the whole-program kernel on gsm's program (T=84, P=16,
     M=128) from its preset state, as device time and at the host's issue
-    pace, beside its byte bound, its serial floor (an all-NOP program of
-    the same length without a trace: T cycles of two barriers each), the
-    plain loop, and T cycle-step launches timed in phase 6.  Returns
-    {B: (kernel_ms, plain_ms, bound_ms)}."""
+    pace, beside its bound (bytes and int32 operations), its serial floor
+    (T live rows of an SADD of ZERO, no trace), the all-NOP program
+    without a trace, µs per cycle, the plain loop, and T cycle-step
+    launches timed in phase 6.  With ``parent`` (the parent commit's
+    ``pe_array``), the parent's kernel is held bit-equal and timed in turns
+    with the new one (parent, new, new, parent) in every reading.  Returns
+    {B: (kernel_ms, plain_ms, bound_ms, bound_by)}."""
     import numpy as np
     import torch
     from repro_torch.cgra.arch import neighbor_table
     from repro_torch.cgra.artifact import load_artifact
     from repro_torch.cgra.simulator import preset_state
     from repro_torch.fuzz.corpus import make_corpus
+    from repro_torch.kernels import pe_array
     from repro_torch.kernels.ops import decode_fields
-    from repro_torch.kernels.pe_array import run_cycles
     from repro_torch.kernels.ref import run_cycles_ref
 
     art = load_artifact("4x4", "gsm")
     fields = decode_fields(art.asm.words(), device)
-    nops = fields._replace(op=torch.zeros_like(fields.op))
+    live, nops = floor_programs(fields)
     T, P = fields.op.shape
     nbr = torch.as_tensor(np.asarray(neighbor_table(art.grid), np.int32),
                           device=device)
@@ -1911,54 +2139,85 @@ def program_timing(device, step_times):
                              B, device)
         M = state.mem.shape[1]
 
-        def fused():
-            run_cycles(fields, state, nbr)
+        def call(mod, f=fields, trace=True):
+            if mod is None:
+                return None
+            return lambda: mod.run_cycles(f, state, nbr, trace=trace)
 
-        def floor():
-            run_cycles(nops, state, nbr, trace=False)
+        if parent is not None:
+            got, want = call(pe_array)(), call(parent)()
+            for a, b in zip((*got[0], got[1]), (*want[0], want[1])):
+                check(max_diff(a, b) == 0,
+                      f"gsm B={B}: the parent kernel's run differs")
 
-        def plain():
-            run_cycles_ref(fields, state, nbr)
+        kernel_ms, parent_ms, turns = in_turns(
+            lambda fn: device_ms(fn, 50), call(pe_array), call(parent))
+        paced_ms, parent_paced_ms, paced_turns = in_turns(
+            lambda fn: host_paced_ms(fn, 50, 15), call(pe_array),
+            call(parent))
+        floor_ms, parent_floor_ms, _ = in_turns(
+            lambda fn: device_ms(fn, 50), call(pe_array, live, False),
+            call(parent, live, False))
+        nop_ms, parent_nop_ms, _ = in_turns(
+            lambda fn: device_ms(fn, 50), call(pe_array, nops, False),
+            call(parent, nops, False))
+        geom = pe_array.run_cycles_geometry(B, P, M, 1, T)
+        other = 1 - geom.layout
 
-        kernel_ms = device_ms(fused, 50)
-        paced_ms = host_paced_ms(fused, 50, 15)
-        floor_ms = device_ms(floor, 50)
-        plain_ms = device_ms(plain, 2)
-        bound_ms = program_bytes(T, B, P, M) / HBM_BYTES_PER_S * 1e3
+        def other_call():
+            return pe_array.run_cycles(fields, state, nbr, layout=other)
+
+        other_ms = device_ms(other_call, 50)
+        plain_ms = device_ms(lambda: run_cycles_ref(fields, state, nbr), 2)
+        bytes_, ops = program_bytes(T, B, P, M), program_ops(fields, B)
+        bound_ms, bound_by = bound(bytes_, ops)
         step_ms, step_paced_ms = step_times[B][:2]
-        out[B] = (kernel_ms, plain_ms, bound_ms)
+        out[B] = (kernel_ms, plain_ms, bound_ms, bound_by)
         emit({"phase": "timing", "kernel": "pe_array.run_cycles",
               "program": "gsm", "B": B, "T": T, "P": P, "M": M,
-              "kernel_device_us": kernel_ms * 1e3,
-              "kernel_host_paced_us": paced_ms * 1e3,
-              "bound_us": bound_ms * 1e3,
-              "bytes": program_bytes(T, B, P, M),
-              "trace_bytes": 4 * T * B * P,
-              "serial_floor_device_us": floor_ms * 1e3,
-              "serial_floor_us_per_cycle": floor_ms * 1e3 / T,
-              "plain_device_us": plain_ms * 1e3,
+              "geometry": geom._asdict(),
+              "layout": LAYOUT_NAMES[geom.layout],
+              "kernel_device_us": us(kernel_ms),
+              "kernel_host_paced_us": us(paced_ms),
+              "kernel_us_per_cycle": us(kernel_ms) / T,
+              "bound_us": us(bound_ms), "bound_by": bound_by,
+              "bytes": bytes_, "trace_bytes": 4 * T * B * P,
+              "bytes_bound_us": bytes_ / HBM_BYTES_PER_S * 1e6,
+              "int32_ops": ops, "ops_bound_us": ops / INT32_OPS_PER_S * 1e6,
+              "share_of_bound": bound_ms / kernel_ms,
+              "serial_floor_device_us": us(floor_ms),
+              "serial_floor_us_per_cycle": us(floor_ms) / T,
+              "nop_program_device_us": us(nop_ms),
+              "other_layout": LAYOUT_NAMES[other],
+              "other_layout_device_us": us(other_ms),
+              **parent_fields(parent, parent_ms, parent_paced_ms,
+                              parent_floor_ms, parent_nop_ms, turns,
+                              paced_turns),
+              "plain_device_us": us(plain_ms),
               "cycle_step_x_T_device_us": step_ms * T * 1e3,
               "cycle_step_x_T_host_paced_us": step_paced_ms * T * 1e3})
     return out
 
 
-def stacked_timing(device, artifacts):
+def stacked_timing(device, artifacts, parent=None):
     """Phase 6c: the stacked whole-program kernel on the 15 4x4 programs
     (NOP-padded to T_max=112) at B=2048 from their preset states, as
-    device time and at the host's issue pace, beside its byte bound, its
-    serial floor (an all-NOP stack of the same shape, no trace), 15 single
+    device time and at the host's issue pace, beside its bound (bytes and
+    int32 operations), its serial floor (every cell a live SADD of ZERO, no
+    trace) and the all-NOP stack, µs per cycle of T_max, 15 single
     launches of the unpadded programs, and the plain version.  Before the
     timing, the stack's trace and final state at this shape are held bit
-    for bit against the plain version and the 15 single launches.  Returns
-    (max_abs_err, kernel_ms, plain_ms, bound_ms)."""
+    for bit against the plain version and the 15 single launches.  With
+    ``parent``, the parent's kernel is held bit-equal and timed in turns.
+    Returns (max_abs_err, kernel_ms, plain_ms, bound_ms, bound_by)."""
     import numpy as np
     import torch
     from repro_torch.cgra.arch import neighbor_table
     from repro_torch.cgra.simulator import stacked_preset_state
     from repro_torch.fuzz.corpus import make_corpus
     from repro_torch.fuzz.engine import _pad_words
+    from repro_torch.kernels import pe_array
     from repro_torch.kernels.ops import decode_fields
-    from repro_torch.kernels.pe_array import run_cycles
     from repro_torch.kernels.ref import PEState, run_stacked_ref
 
     stack = [a for a in artifacts if a.arch == STACK_ARCH]
@@ -1967,7 +2226,7 @@ def stacked_timing(device, artifacts):
     P = stack[0].grid.num_pes
     fields = decode_fields(np.stack([_pad_words(a.asm.words(), T)
                                      for a in stack]), device)
-    nops = fields._replace(op=torch.zeros_like(fields.op))
+    live, nops = floor_programs(fields)
     singles = [decode_fields(a.asm.words(), device) for a in stack]
     state = stacked_preset_state(
         [a.asm for a in stack], P,
@@ -1980,44 +2239,87 @@ def stacked_timing(device, artifacts):
     err = check_stack(fields, state, nbr, singles,
                       f"stack of {K} at B={B}")
 
-    def stacked():
-        run_cycles(fields, state, nbr)
+    def call(mod, f=fields, trace=True):
+        if mod is None:
+            return None
+        return lambda: mod.run_cycles(f, state, nbr, trace=trace)
 
-    def floor():
-        run_cycles(nops, state, nbr, trace=False)
+    if parent is not None:
+        got, want = call(pe_array)(), call(parent)()
+        for a, b in zip((*got[0], got[1]), (*want[0], want[1])):
+            check(max_diff(a, b) == 0, "stack: the parent kernel's run "
+                                       "differs")
 
-    def one_by_one():
-        for f, s in zip(singles, states):
-            run_cycles(f, s, nbr)
+    def one_by_one(mod):
+        if mod is None:
+            return None
 
-    def plain():
-        run_stacked_ref(fields, state, nbr)
+        def run():
+            for f, s in zip(singles, states):
+                mod.run_cycles(f, s, nbr)
+        return run
 
-    kernel_ms = device_ms(stacked, 20)
-    paced_ms = host_paced_ms(stacked, 20, 15)
-    floor_ms = device_ms(floor, 20)
-    singles_ms = device_ms(one_by_one, 10)
-    singles_paced_ms = host_paced_ms(one_by_one, 10, 9)
-    plain_ms = device_ms(plain, 1, warmup=1)
-    bytes_ = K * program_bytes(T, B, P, M)
-    bound_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    kernel_ms, parent_ms, turns = in_turns(
+        lambda fn: device_ms(fn, 20), call(pe_array), call(parent))
+    paced_ms, parent_paced_ms, paced_turns = in_turns(
+        lambda fn: host_paced_ms(fn, 20, 15), call(pe_array), call(parent))
+    floor_ms, parent_floor_ms, _ = in_turns(
+        lambda fn: device_ms(fn, 20), call(pe_array, live, False),
+        call(parent, live, False))
+    nop_ms, parent_nop_ms, _ = in_turns(
+        lambda fn: device_ms(fn, 20), call(pe_array, nops, False),
+        call(parent, nops, False))
+    singles_ms, parent_singles_ms, _ = in_turns(
+        lambda fn: device_ms(fn, 10), one_by_one(pe_array),
+        one_by_one(parent))
+    singles_paced_ms = host_paced_ms(one_by_one(pe_array), 10, 9)
+    geom = pe_array.run_cycles_geometry(B, P, M, K, T)
+    other = 1 - geom.layout
+    other_ms = device_ms(lambda: pe_array.run_cycles(fields, state, nbr,
+                                                     layout=other), 20)
+    plain_ms = device_ms(lambda: run_stacked_ref(fields, state, nbr), 1,
+                         warmup=1)
+    bytes_, ops = K * program_bytes(T, B, P, M), program_ops(fields, B)
+    bound_ms, bound_by = bound(bytes_, ops)
     rows_real = sum(a.asm.total_rows for a in stack)
     emit({"phase": "timing", "kernel": "pe_array.run_cycles (stacked)",
           "programs": K, "B": B, "T_max": T, "rows_real": rows_real,
           "rows_padded": K * T, "P": P, "M": M,
-          "kernel_device_us": kernel_ms * 1e3,
-          "kernel_host_paced_us": paced_ms * 1e3,
-          "bound_us": bound_ms * 1e3, "bytes": bytes_,
-          "serial_floor_device_us": floor_ms * 1e3,
-          "single_launches_device_us": singles_ms * 1e3,
-          "single_launches_host_paced_us": singles_paced_ms * 1e3,
-          "plain_device_us": plain_ms * 1e3, "max_abs_err": err})
-    return err, kernel_ms, plain_ms, bound_ms
+          "geometry": geom._asdict(), "layout": LAYOUT_NAMES[geom.layout],
+          "kernel_device_us": us(kernel_ms),
+          "kernel_host_paced_us": us(paced_ms),
+          "kernel_us_per_cycle": us(kernel_ms) / T,
+          "bound_us": us(bound_ms), "bound_by": bound_by, "bytes": bytes_,
+          "bytes_bound_us": bytes_ / HBM_BYTES_PER_S * 1e6,
+          "int32_ops": ops, "ops_bound_us": ops / INT32_OPS_PER_S * 1e6,
+          "share_of_bound": bound_ms / kernel_ms,
+          "serial_floor_device_us": us(floor_ms),
+          "serial_floor_us_per_cycle": us(floor_ms) / T,
+          "nop_program_device_us": us(nop_ms),
+          "single_launches_device_us": us(singles_ms),
+          "single_launches_host_paced_us": us(singles_paced_ms),
+          "other_layout": LAYOUT_NAMES[other],
+          "other_layout_device_us": us(other_ms),
+          **parent_fields(parent, parent_ms, parent_paced_ms,
+                          parent_floor_ms, parent_nop_ms, turns, paced_turns,
+                          parent_single_launches_device_us=us(
+                              parent_singles_ms)),
+          "plain_device_us": us(plain_ms), "max_abs_err": err})
+    return err, kernel_ms, plain_ms, bound_ms, bound_by
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                             "GPU (see the module docstring)")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a copy of the parent commit's src/repro_torch/"
+                         "kernels: phases 6b/6c time its whole-program "
+                         "kernel in turns with this one")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -2063,8 +2365,9 @@ def main() -> int:
     stream_phase(device)
     profile_phase(device)
     step_times = timing(device)
-    fused_times = program_timing(device, step_times)
-    stacked_times = stacked_timing(device, artifacts)
+    parent = parent_kernels(args.parent)
+    fused_times = program_timing(device, step_times, parent)
+    stacked_times = stacked_timing(device, artifacts, parent)
     fleet_rows, fleet_runs = fleet_phase(artifacts, device)
     race_runs = race_phase(device, seq_seconds)
     fleet_chaos_phase(fleet_rows)
@@ -2075,16 +2378,20 @@ def main() -> int:
     serve_runs = serve_phase(device)
     fused_err = max(fused_err, sweep_err)
 
-    def line(name, launches, err, ms, plain_ms, bound_ms,
+    def line(name, launches, err, ms, plain_ms, bound_ms, bound_by="bytes",
              replaces="src/repro/kernels/pe_array.py:67", **extra):
         return {"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/pe_array.cu",
                 "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": "bytes", "library_ms": None, **extra}
+                "bound_by": bound_by, "library_ms": None, **extra}
 
     step_ms, _, step_plain_ms, step_bound_ms = step_times[MAIN_BATCH]
+    for name in LAYOUT_NAMES:
+        check(sum(n[name] for n in LAYOUT_LAUNCHES.values()) > 0,
+              f"the {name} layout of run_cycles was launched no time on "
+              f"the main path: {LAYOUT_LAUNCHES}")
     emit({"phase": "done", "seconds": round(time.monotonic() - t_start, 3)})
     emit({"kernels": [
         line("pe_array.cycle_step", steps, step_err, step_ms, step_plain_ms,
@@ -2099,10 +2406,13 @@ def main() -> int:
                                "fleet": fleet_runs, "race": race_runs,
                                "sweep": sweep_runs,
                                "heuristic": heuristic_runs,
-                               "serve": serve_runs}),
+                               "serve": serve_runs},
+             launches_by_layout={k: v for k, v in LAYOUT_LAUNCHES.items()
+                                 if k != "stacked_main_path"}),
         line("pe_array.run_cycles (stacked)", stacked_runs,
              max(stacked_err, stacked_times[0]), *stacked_times[1:],
-             replaces="src/repro/fuzz/engine.py:508")]})
+             replaces="src/repro/fuzz/engine.py:508",
+             launches_by_layout=LAYOUT_LAUNCHES["stacked_main_path"])]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -73,7 +73,7 @@ def library() -> ctypes.CDLL:
     lib.pe_cycle_step.argtypes = ([ctypes.c_void_p] * 16
                                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.pe_run_cycles.argtypes = ([ctypes.c_void_p] * 17
-                                  + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                                  + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     for fn in (lib.pe_cycle_step, lib.pe_run_cycles):
         fn.restype = ctypes.c_int
     return lib

@@ -29,8 +29,10 @@ from repro_torch.fuzz.engine import (fuzz_kernel, fuzz_program,  # noqa: E402
                                      fuzz_stacked, run_stacked)
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.cgra.isa import OPCODE  # noqa: E402
-from repro_torch.kernels.pe_array import cycle_step, run_cycles  # noqa: E402
-from repro_torch.kernels.sample import random_fields, random_state  # noqa: E402
+from repro_torch.kernels.pe_array import (  # noqa: E402
+    LANE_LAYOUT, UNIFORM_LAYOUT, cycle_step, lanes_fit, run_cycles)
+from repro_torch.kernels.sample import (  # noqa: E402
+    HAZARDS, hazard_fields, random_fields, random_state)
 
 pytestmark = pytest.mark.cuda
 
@@ -143,6 +145,89 @@ def test_run_cycles_matches_plain_version_and_step_chain(cuda, side, batch,
         assert torch.equal(a, b)
 
 
+def _hold_run_cycles(fields, state, nbr, chain=True, layout=None):
+    """One launch (in ``layout``, or the one chosen for the shape) against
+    the plain version and (``chain``) a chain of cycle-step launches:
+    trace and final state bit-equal, traced or not."""
+    T = fields.op.shape[0]
+    before = run_cycles.launches
+    final, outs = run_cycles(fields, state, nbr, layout=layout)
+    torch.cuda.synchronize()
+    assert run_cycles.launches == before + 1
+    plain, plain_outs = ref.run_cycles_ref(fields, state, nbr)
+    assert torch.equal(outs, plain_outs)
+    for name, a, b in zip(STATE, final, plain):
+        assert torch.equal(a, b), name
+    if chain:
+        step = state
+        for t in range(T):
+            step = cycle_step(step, ref.InstrRow(*(x[t] for x in fields)),
+                              nbr)
+            assert torch.equal(outs[t], step.out), f"out after step {t}"
+        for name, a, b in zip(STATE, final, step):
+            assert torch.equal(a, b), name
+    untraced, none = run_cycles(fields, state, nbr, trace=False,
+                                layout=layout)
+    assert none is None
+    for a, b in zip(untraced, final):
+        assert torch.equal(a, b)
+
+
+#: the two layouts of run_cycles, each held on the hazard programs
+LAYOUTS = (UNIFORM_LAYOUT, LANE_LAYOUT)
+
+#: (grid side, batch, M, rows): P from 4 to 144 (a warp runs 1 to 8 PEs),
+#: batches that are not a multiple of the block's rows
+HAZARD_SHAPES = [(2, 37, 64, 64), (3, 1001, 128, 64), (4, 1000, 128, 84),
+                 (5, 4097, 256, 64), (6, 37, 128, 64), (8, 1001, 128, 64),
+                 (12, 9, 256, 64)]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("kind", HAZARDS)
+@pytest.mark.parametrize("side,batch,M,T", HAZARD_SHAPES)
+def test_hazard_programs_on_the_card(cuda, side, batch, M, T, kind, layout):
+    """Each hazard program in each layout; where the lane layout does not
+    take the shape (P > 32), asking for it raises."""
+    rng = np.random.RandomState(side * 1000 + batch + M + T)
+    P = side * side
+    f = hazard_fields(rng, kind, T, P, M)
+    s = random_state(rng, batch, P, M)
+    nbr = torch.as_tensor(np.asarray(neighbor_table(Grid(side, side)),
+                                     np.int32), device=cuda)
+    fields = fields_from_numpy(*(f[k] for k in FIELDS), device=cuda)
+    state = state_from_numpy(*(s[k] for k in STATE), device=cuda)
+    if layout == LANE_LAYOUT and not lanes_fit(P, M):
+        with pytest.raises(ValueError, match="lane layout"):
+            run_cycles(fields, state, nbr, layout=layout)
+        return
+    _hold_run_cycles(fields, state, nbr, chain=batch < 4000, layout=layout)
+
+
+@pytest.mark.parametrize("side,batch,M,T", [
+    (4, 1000, 128, 300), (6, 37, 128, 400), (2, 3, 58_000, 16),
+    (4, 8, 58_080, 16)])
+def test_run_cycles_from_a_ring_or_with_the_image_in_device_memory(
+        cuda, side, batch, M, T):
+    """Programs above the shared budget run from a ring of two chunks; an
+    image too large for shared memory at one row a block stays in device
+    memory (the last shape)."""
+    from repro_torch.kernels.pe_array import run_cycles_geometry
+
+    P = side * side
+    geom = run_cycles_geometry(batch, P, M, T=T, layout=UNIFORM_LAYOUT)
+    assert geom.chunk_rows < T or not geom.memory_in_shared
+    rng = np.random.RandomState(side + batch + M + T)
+    f = random_fields(rng, T, P, M, full_encoding=True)
+    f["op"][T // 2:T // 2 + 40] = OPCODE["NOP"]
+    s = random_state(rng, batch, P, M)
+    nbr = torch.as_tensor(np.asarray(neighbor_table(Grid(side, side)),
+                                     np.int32), device=cuda)
+    _hold_run_cycles(fields_from_numpy(*(f[k] for k in FIELDS), device=cuda),
+                     state_from_numpy(*(s[k] for k in STATE), device=cuda),
+                     nbr, chain=False, layout=UNIFORM_LAYOUT)
+
+
 def test_run_cycles_rejects_what_the_kernel_does_not_take(cuda):
     f, s, nbrs = _case(2, 4, 64, 3)
     nbr = torch.as_tensor(np.asarray(nbrs, np.int32), device=cuda)
@@ -173,6 +258,22 @@ def test_fuzz_program_launches_run_cycles_once_per_chunk(cuda, arch, kernel):
     assert rep.status == "ok"
     assert run_cycles.launches - runs == 3
     assert cycle_step.launches == steps
+
+
+@pytest.mark.parametrize("side,batch,lane", [(4, 1024, True),
+                                             (4, 16384, False),
+                                             (6, 1024, False)])
+def test_run_cycles_counts_its_lane_layout_launches(cuda, side, batch, lane):
+    """Every launch adds one to ``launches``; one in the lane layout (the
+    main path's B = 1024 at P <= 32) adds one to ``lane_launches`` too."""
+    f, s, nbrs = _case(side, batch, 128, 8)
+    nbr = torch.as_tensor(np.asarray(nbrs, np.int32), device=cuda)
+    fields = fields_from_numpy(*(f[k] for k in FIELDS), device=cuda)
+    state = state_from_numpy(*(s[k] for k in STATE), device=cuda)
+    runs, lanes = run_cycles.launches, run_cycles.lane_launches
+    run_cycles(fields, state, nbr)
+    assert run_cycles.launches == runs + 1
+    assert run_cycles.lane_launches == lanes + lane
 
 
 def _stack(K, T, side, batch, M, seed):
@@ -210,6 +311,57 @@ def test_stacked_launch_matches_plain_version_and_single_launches(
                                          nbr)
         assert torch.equal(outs[k], single_outs), f"trace of program {k}"
         for name, a, b in zip(STATE, final, single):
+            assert torch.equal(a[k], b), f"{name} of program {k}"
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("side,batch", [(3, 37), (4, 1001), (6, 9),
+                                        (8, 130)])
+def test_hazard_stack_on_the_card(cuda, side, batch, layout):
+    """Hazard programs of lengths 0 to T_max, NOP-padded as the fuzz engine
+    pads them, in one stacked launch in each layout that takes the shape:
+    equal to the plain version and to a single launch of each unpadded
+    program, padding rows included."""
+    from repro_torch.fuzz.engine import _pad_fields
+
+    T_max, M, P = 48, 128, side * side
+    rng = np.random.RandomState(side * 100 + batch)
+    lengths = [0, 1, 2, T_max // 3, T_max // 2, T_max - 1, T_max]
+    singles = []
+    for k, n in enumerate(lengths):
+        f = hazard_fields(rng, HAZARDS[k % len(HAZARDS)], T_max, P, M)
+        singles.append(fields_from_numpy(*(f[x][:n] for x in FIELDS),
+                                         device=cuda))
+    states = [random_state(rng, batch, P, M) for _ in lengths]
+    fields = ref.InstrRow(*(torch.stack(fs) for fs in zip(
+        *(_pad_fields(f, T_max) for f in singles))))
+    state = state_from_numpy(*(np.stack([s[k] for s in states])
+                               for k in STATE), device=cuda)
+    nbr = torch.as_tensor(np.asarray(neighbor_table(Grid(side, side)),
+                                     np.int32), device=cuda)
+    if layout == LANE_LAYOUT and not lanes_fit(P, M):
+        with pytest.raises(ValueError, match="lane layout"):
+            run_cycles(fields, state, nbr, layout=layout)
+        return
+    before = run_cycles.launches
+    final, outs = run_cycles(fields, state, nbr, layout=layout)
+    torch.cuda.synchronize()
+    assert run_cycles.launches == before + 1
+    plain, plain_outs = ref.run_stacked_ref(fields, state, nbr)
+    assert torch.equal(outs, plain_outs)
+    for name, a, b in zip(STATE, final, plain):
+        assert torch.equal(a, b), name
+    for k, single in enumerate(singles):
+        n = lengths[k]
+        one = ref.PEState(*(t[k] for t in state))
+        if n == 0:
+            s_final, s_outs = one, one.out[None][:0]
+        else:
+            s_final, s_outs = run_cycles(single, one, nbr)
+        assert torch.equal(outs[k, :n], s_outs), f"program {k}"
+        last = s_outs[-1] if n else one.out
+        assert torch.equal(outs[k, n:], last.expand(T_max - n, batch, P))
+        for name, a, b in zip(STATE, final, s_final):
             assert torch.equal(a[k], b), f"{name} of program {k}"
 
 

@@ -26,7 +26,8 @@ from repro_torch.fuzz.corpus import make_corpus  # noqa: E402
 from repro_torch.fuzz.triage import inject_fault  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.pe_array import (  # noqa: E402
-    MAX_PROGRAMS, run_cycles, run_cycles_geometry)
+    LANE_LAYOUT, LANES_MAX_WARPS, MAX_PROGRAMS, TARGET_BLOCKS,
+    UNIFORM_LAYOUT, run_cycles, run_cycles_geometry)
 from repro_torch.kernels.sample import random_fields, random_state  # noqa: E402
 from torch_parity import jax_asm, jax_grid  # noqa: E402
 
@@ -162,12 +163,35 @@ def test_cpu_wrapper_takes_the_plain_stacked_version(stack):
 
 @pytest.mark.parametrize("K", [1, 2, 15, MAX_PROGRAMS])
 def test_stacked_geometry_counts_blocks_per_program(K):
-    one = run_cycles_geometry(2048, 16, 128)
-    geom = run_cycles_geometry(2048, 16, 128, K)
+    """Blocks cover each program's batch; a stack of at most
+    LANES_MAX_WARPS warps runs in the lane layout, a deeper one in the
+    uniform layout, filling the card with fewer, wider blocks (up to 32
+    batch rows a block); the shared layout does not depend on K but
+    through R."""
+    chosen = run_cycles_geometry(2048, 16, 128, K, T=112)
+    assert chosen.programs == K
+    assert (chosen.layout == LANE_LAYOUT) == (K * 2048 // 2
+                                              <= LANES_MAX_WARPS)
+    geom = run_cycles_geometry(2048, 16, 128, K, T=112,
+                               layout=UNIFORM_LAYOUT)
+    if chosen.layout == UNIFORM_LAYOUT:
+        assert chosen == geom
+    else:
+        assert chosen.blocks * chosen.rows_per_block >= 2048
+        assert chosen.blocks * K >= 128 and chosen.threads == 128
     assert geom.programs == K
-    assert geom[:4] == one[:4]         # a program's blocks do not change
-    assert (geom.blocks - 1) * geom.rows_per_block < 2048 \
-        <= geom.blocks * geom.rows_per_block
+    R = geom.rows_per_block
+    assert (geom.blocks - 1) * R < 2048 <= geom.blocks * R
+    assert geom.blocks * K >= 128 and R <= 32
+    assert R == 32 or 2 * R * TARGET_BLOCKS > K * 2048
+    one = run_cycles_geometry(2048, 16, 128, 1, T=112,
+                              layout=UNIFORM_LAYOUT)
+    assert R >= one.rows_per_block
+    assert geom.threads == one.threads == 16 * 32      # one warp a PE
+    assert geom.chunk_rows == one.chunk_rows == 112
+    S = R | 1
+    assert geom.shared_bytes == 4 * (128 * S + (8 * 16 + 2) * S + 4 * 16
+                                     + 112 * (8 * 16 + 1) + 1 + 1 + 32)
 
 
 @pytest.mark.parametrize("K", [0, -1, MAX_PROGRAMS + 1])
@@ -177,7 +201,11 @@ def test_stacked_geometry_raises_outside_the_second_grid_axis(K):
 
 
 def test_geometry_of_the_main_stacked_launch():
-    # the smoke's stacked main path: 15 4x4 kernels x 2048 memories
-    geom = run_cycles_geometry(2048, 16, 128, 15)
-    assert geom.blocks * geom.programs >= 132 * 8
-    assert geom.shared_bytes == geom.rows_per_block * (128 + 32) * 4
+    # the smoke's stacked main path: 15 4x4 kernels x 2048 memories,
+    # T_max = 112: full warps, the whole program staged, two blocks an SM
+    geom = run_cycles_geometry(2048, 16, 128, 15, T=112)
+    assert geom.layout == UNIFORM_LAYOUT
+    assert geom.rows_per_block == 32 and geom.threads == 512
+    assert geom.blocks * geom.programs >= 132 * 7
+    assert geom.chunk_rows == 112 and geom.memory_in_shared
+    assert 2 * geom.shared_bytes <= 228 * 1024
