@@ -3,21 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds the PE-array kernels (the cycle step and the whole-program run) from
-``src/repro_torch/kernels/csrc`` with nvcc, then, printing one JSON object
-per line:
+Builds the PE-array kernels (the whole-program run in two layouts, whose
+one-row launch is the cycle step) from ``src/repro_torch/kernels/csrc``
+with nvcc, then, printing one JSON object per line:
 
 1. the card (nvidia-smi name and power limit, torch and CUDA versions);
 2. the build and its time;
 3. a. the cycle step against its plain PyTorch version on the card,
       bit-equal on all five state fields after every step: random
-      collision-free programs over P in {4, 9, 16, 25, 36}, M in {64, 128,
-      256}, B in {1, 37, 1000, 4096};
+      collision-free programs in the full encoding over P in
+      ``STEP_PES`` (1 to 256, both layouts of a one-row launch and every
+      kPe instance), M in {64, 128, 256} above P (512 at P = 256), B in
+      {1, 37, 1000, 4096};
    b. every shipped artifact's full program at B=1024 through
       ``run_program`` (one whole-program launch each) against a loop of
       the plain step;
    c. the whole-program run against its plain version and against a chain
-      of cycle-step launches, trace and final state bit-equal, traced and
+      of cycle-step launches (one-row launches of the same kernels: the
+      state round-trips between launches), trace and final state
+      bit-equal, traced and
       untraced: random programs of 64 rows on the same grid of shapes,
       plus programs of 0 and 1 rows and an all-NOP program; then the
       hazard programs of ``sample.HAZARDS`` (all-NOP rows mid program,
@@ -76,20 +80,21 @@ per line:
    as device time under ``torch.profiler`` and at the host's issue pace
    with CUDA events, beside its plain version and its bound, the larger
    of its bytes over the HBM rate and its int32 operations over the INT32
-   rate (``bound_by`` names which); for the whole-program run also the
+   rate (``bound_by`` names which), and the device time of the layout the
+   shape does not choose; for the cycle step also its floor at B=1 (one
+   warp) on a live and an all-NOP row; for the whole-program run also the
    serial floor (every cell a live SADD of ZERO, no trace), the all-NOP
-   program, µs per cycle and the device time of the layout the shape
-   does not choose; and the stacked run of the 15 4x4 programs
+   program and µs per cycle; and the stacked run of the 15 4x4 programs
    at B=2048 (T=112), first held bit-equal, trace and final state, to its
    plain version and to 15 single launches at that shape, then timed
    beside the same, those 15 single launches and its plain version.  With
    ``--parent DIR`` (a copy of the parent commit's
    ``src/repro_torch/kernels``, e.g. ``git archive HEAD~1
    src/repro_torch/kernels | tar -x -C build/parent --strip-components=2``
-   and ``--parent build/parent/kernels``), the parent's whole-program
-   kernel is held bit-equal and timed in turns with this one (parent,
-   new, new, parent) in each of these readings, host pace included, and
-   the records gain the ``parent_*`` and ``turns_*`` keys;
+   and ``--parent build/parent/kernels``), the parent's cycle step and
+   whole-program kernel are held bit-equal and timed in turns with this
+   one's (parent, new, new, parent) in each of these readings, host pace
+   included, and the records gain the ``parent_*`` and ``turns_*`` keys;
 7. mapping at scale, forked after CUDA is up:
    a. the fleet: ``compile_many`` over the 16 shipped (kernel, arch)
       points on min(8, CPUs) workers into a fresh cache, 16 of 16 ``ok``
@@ -160,6 +165,9 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: csrc/pe_array.cu)
 INT_OPS_PER_PE_CYCLE = 8
 SWEEP_STEPS = 64
+#: phase 3a: square tori from one PE to 16 x 16, which take each layout of
+#: a one-row launch and every kPe instance of the uniform one
+STEP_PES = (1, 4, 9, 16, 25, 36, 64, 256)
 #: phases 3c/3d: the hazard programs run at these P (one above 36, where a
 #: warp runs two PEs) and batches that are not a multiple of a block's rows
 HAZARD_PES = (4, 9, 16, 25, 36, 64)
@@ -418,22 +426,27 @@ def tensors(arrays, device):
 
 
 def kernel_vs_plain(device) -> int:
-    """Phase 3a: random programs, every field after every step.  Returns
-    the largest absolute difference seen (0 when bit-equal)."""
+    """Phase 3a: random programs in the full encoding, every field after
+    every step, over ``STEP_PES`` x M in {64, 128, 256} (M > P; P = 256 at
+    M = 512 only) x B in {1, 37, 1000, 4096}: each layout of a one-row
+    launch and, past P = 32, the kPe = 2, 4 and 8 instances.  The
+    differences of a case are gathered on the card and read once.
+    Returns the largest absolute difference seen (0 when bit-equal)."""
     import numpy as np
     import torch
     from repro_torch.cgra.arch import neighbor_table
-    from repro_torch.kernels.pe_array import cycle_step
+    from repro_torch.kernels.pe_array import cycle_step, run_cycles_geometry
     from repro_torch.kernels.ref import InstrRow, PEState, cycle_step_ref
     from repro_torch.kernels.sample import random_fields, random_state
 
     worst = 0
     cases = 0
+    layouts = {}
     t0 = time.monotonic()
-    for P in (4, 9, 16, 25, 36):
+    for P in STEP_PES:
         nbr = torch.as_tensor(np.asarray(neighbor_table(grid_for(P)),
                                          np.int32), device=device)
-        for M in (64, 128, 256):
+        for M in [m for m in (64, 128, 256) if m > P] or [2 * P]:
             for B in (1, 37, 1000, 4096):
                 rng = np.random.RandomState(P * 100_003 + M * 101 + B)
                 f = tensors(random_fields(rng, SWEEP_STEPS, P, M,
@@ -442,18 +455,28 @@ def kernel_vs_plain(device) -> int:
                     *(f[k].unbind(0) for k in InstrRow._fields))]
                 s = tensors(random_state(rng, B, P, M), device)
                 kern = plain = PEState(**s)
-                for t, row in enumerate(rows):
+                diffs = []
+                for row in rows:
                     kern = cycle_step(kern, row, nbr)
                     plain = cycle_step_ref(plain, row, nbr)
-                    for name, a, b in zip(PEState._fields, kern, plain):
-                        diff = max_diff(a, b)
-                        worst = max(worst, diff)
-                        check(diff == 0, f"P={P} M={M} B={B} step {t}: "
-                                         f"{name} differs by {diff}")
+                    diffs.append(torch.stack([
+                        (a.long() - b.long()).abs().max()
+                        for a, b in zip(kern, plain)]))
+                diffs = torch.stack(diffs).cpu()        # (steps, fields)
+                worst = max(worst, int(diffs.max()))
+                if int(diffs.max()):
+                    t, k = (int(i) for i in diffs.nonzero()[0])
+                    check(False, f"P={P} M={M} B={B} step {t}: "
+                                 f"{PEState._fields[k]} differs by "
+                                 f"{int(diffs[t, k])}")
+                name = LAYOUT_NAMES[run_cycles_geometry(B, P, M, 1, 1).layout]
+                layouts[name] = layouts.get(name, 0) + 1
                 cases += 1
-    emit({"phase": "kernel_vs_plain", "cases": cases,
-          "steps_each": SWEEP_STEPS, "max_abs_err": worst,
-          "seconds": round(time.monotonic() - t0, 3)})
+    check(all(layouts.get(n, 0) for n in LAYOUT_NAMES),
+          f"phase 3a ran a layout no time: {layouts}")
+    emit({"phase": "kernel_vs_plain", "cases": cases, "pes": list(STEP_PES),
+          "cases_by_layout": layouts, "steps_each": SWEEP_STEPS,
+          "max_abs_err": worst, "seconds": round(time.monotonic() - t0, 3)})
     return worst
 
 
@@ -1958,11 +1981,13 @@ def profile_phase(device) -> None:
     from repro_torch.cgra.artifact import load_artifact
     from repro_torch.fuzz.corpus import make_corpus
     from repro_torch.fuzz.engine import fuzz_program
+    from repro_torch.kernels.pe_array import cycle_step
 
     art = load_artifact("4x4", "gsm")
     mems = make_corpus(art, MAIN_MEMORIES)
     fuzz_program(art, mems[:MAIN_BATCH], batch=MAIN_BATCH, device=device)
     torch.cuda.synchronize()
+    steps = cycle_step.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1975,7 +2000,6 @@ def profile_phase(device) -> None:
     busy_us = sum(device_us(e) for e in events)
     fused = [e for e in events if "run_cycles_kernel" in e.key
              or "run_lanes_kernel" in e.key]
-    steps = [e for e in events if "cycle_step_kernel" in e.key]
     launches = sum(e.count for e in fused)
     lanes = sum(e.count for e in fused if "run_lanes_kernel" in e.key)
     fused_us = sum(device_us(e) for e in fused)
@@ -1985,7 +2009,9 @@ def profile_phase(device) -> None:
     check(lanes == launches, f"profile: {launches - lanes} of {launches} "
                              f"launches at B={MAIN_BATCH} left the lane "
                              f"layout")
-    check(not steps, "profile saw cycle_step_kernel on the main path")
+    check(cycle_step.launches == steps,
+          f"cycle_step launched {cycle_step.launches - steps} times on the "
+          f"profiled main path")
     emit({"phase": "profile", "kernel": "gsm", "memories": MAIN_MEMORIES,
           "batch": MAIN_BATCH, "wall_us": wall_us,
           "device_busy_us": busy_us,
@@ -2044,50 +2070,123 @@ def device_ms(fn, calls: int, warmup: int = 3) -> float:
     check(False, "the profiler recorded no device time in three windows")
 
 
-def timing(device):
-    """Phase 6: kernel and plain time per cycle step at the fuzz path's
-    shapes, as device time and at the host's issue pace.  Returns
-    {B: (kernel_ms, kernel_paced_ms, plain_ms, bound_ms)}."""
+def timing(device, parent=None):
+    """Phase 6: the cycle step (a one-row launch of the whole-program
+    kernels, no trace) per launch on a random row (P=16, M=128) at
+    ``TIMED_BATCHES``, as device time and at the host's issue pace, beside
+    the one-row launch in the layout the shape does not choose, its plain
+    version and its bound (bytes and int32 operations); then its floor at
+    B=1 (one warp), on a live row (every cell an SADD of ZERO) and on an
+    all-NOP row.  With ``parent`` (the parent commit's ``pe_array``), the
+    parent's cycle step is held bit-equal and timed in turns with this one
+    (parent, new, new, parent) in each reading.  Returns {B: (kernel_ms,
+    kernel_paced_ms, plain_ms, bound_ms, bound_by)}."""
     import numpy as np
     import torch
     from repro_torch.cgra.arch import neighbor_table
-    from repro_torch.kernels.pe_array import cycle_step
+    from repro_torch.kernels import pe_array
     from repro_torch.kernels.ref import InstrRow, PEState, cycle_step_ref
     from repro_torch.kernels.sample import random_fields, random_state
 
-    nbr = torch.as_tensor(np.asarray(neighbor_table(grid_for(TIMED_P)),
+    P, M = TIMED_P, TIMED_M
+    nbr = torch.as_tensor(np.asarray(neighbor_table(grid_for(P)),
                                      np.int32), device=device)
-    out = {}
-    for B in TIMED_BATCHES:
-        rng = np.random.RandomState(B)
-        f = tensors(random_fields(rng, 1, TIMED_P, TIMED_M), device)
+
+    def steps(B, seed):
+        """A random row and two states of B rows; ``step(mod, row)`` runs
+        ``mod.cycle_step`` from one state into the other, in turns."""
+        rng = np.random.RandomState(seed)
+        f = tensors(random_fields(rng, 1, P, M), device)
         row = InstrRow(*(f[k][0] for k in InstrRow._fields))
-        bufs = [PEState(**tensors(random_state(rng, B, TIMED_P, TIMED_M),
-                                  device)) for _ in range(2)]
+        bufs = [PEState(**tensors(random_state(rng, B, P, M), device))
+                for _ in range(2)]
         flip = [0]
 
-        def kernel_step():
-            i = flip[0]
-            cycle_step(bufs[i], row, nbr, out=bufs[1 - i])
-            flip[0] = 1 - i
+        def step(mod, r=row):
+            if mod is None:
+                return None
+
+            def run():
+                i = flip[0]
+                mod.cycle_step(bufs[i], r, nbr, out=bufs[1 - i])
+                flip[0] = 1 - i
+            return run
+
+        if parent is not None:
+            got, want = (m.cycle_step(bufs[0], row, nbr)
+                         for m in (pe_array, parent))
+            for a, b in zip(got, want):
+                check(max_diff(a, b) == 0, f"cycle_step B={B}: the parent "
+                                           f"kernel's step differs")
+        return row, bufs, step
+
+    def parent_keys(parent_ms, parent_paced_ms, turns, paced_turns):
+        if parent is None:
+            return {}
+        return {"parent_device_us": us(parent_ms),
+                "parent_host_paced_us": us(parent_paced_ms),
+                "turns_device_us": turns, "turns_host_paced_us": paced_turns}
+
+    out = {}
+    for B in TIMED_BATCHES:
+        row, bufs, step = steps(B, B)
+        kernel_ms, parent_ms, turns = in_turns(
+            lambda fn: device_ms(fn, 200), step(pe_array), step(parent))
+        paced_ms, parent_paced_ms, paced_turns = in_turns(
+            lambda fn: host_paced_ms(fn, 200, 15), step(pe_array),
+            step(parent))
+        geom = pe_array.run_cycles_geometry(B, P, M, 1, 1)
+        other = 1 - geom.layout
+        program = InstrRow(*(x[None] for x in row))     # the (1, P) view
+        other_ms = device_ms(lambda: pe_array.run_cycles(
+            program, bufs[0], nbr, trace=False, layout=other), 200)
 
         def plain_step():
             cycle_step_ref(bufs[0], row, nbr)
 
-        kernel_ms = device_ms(kernel_step, 200)
-        kernel_paced_ms = host_paced_ms(kernel_step, 200, 15)
         plain_ms = device_ms(plain_step, 20)
         plain_paced_ms = host_paced_ms(plain_step, 20, 7)
-        bound_ms = state_bytes(B, TIMED_P, TIMED_M) / HBM_BYTES_PER_S * 1e3
-        out[B] = (kernel_ms, kernel_paced_ms, plain_ms, bound_ms)
+        bytes_ = program_bytes(1, B, P, M, trace=False)
+        ops = program_ops(program, B)
+        bound_ms, bound_by = bound(bytes_, ops)
+        out[B] = (kernel_ms, paced_ms, plain_ms, bound_ms, bound_by)
         emit({"phase": "timing", "kernel": "pe_array.cycle_step", "B": B,
-              "P": TIMED_P, "M": TIMED_M,
-              "kernel_device_us": kernel_ms * 1e3,
-              "kernel_host_paced_us": kernel_paced_ms * 1e3,
-              "plain_device_us": plain_ms * 1e3,
-              "plain_host_paced_us": plain_paced_ms * 1e3,
-              "bound_us": bound_ms * 1e3,
-              "bytes": state_bytes(B, TIMED_P, TIMED_M)})
+              "P": P, "M": M, "geometry": geom._asdict(),
+              "layout": LAYOUT_NAMES[geom.layout],
+              "kernel_device_us": us(kernel_ms),
+              "kernel_host_paced_us": us(paced_ms),
+              "other_layout": LAYOUT_NAMES[other],
+              "other_layout_device_us": us(other_ms),
+              **parent_keys(parent_ms, parent_paced_ms, turns, paced_turns),
+              "plain_device_us": us(plain_ms),
+              "plain_host_paced_us": us(plain_paced_ms),
+              "bound_us": us(bound_ms), "bound_by": bound_by,
+              "bytes": bytes_, "int32_ops": ops,
+              "share_of_bound": bound_ms / kernel_ms})
+
+    # the floor: one warp, a live row and an all-NOP row
+    row, bufs, step = steps(1, 1)
+    live, nop = floor_programs(row)
+    floors = {}
+    for name, r in (("live_row", live), ("nop_row", nop)):
+        floors[name] = in_turns(lambda fn: device_ms(fn, 200),
+                                step(pe_array, r), step(parent, r))
+    paced_ms, parent_paced_ms, paced_turns = in_turns(
+        lambda fn: host_paced_ms(fn, 200, 15), step(pe_array, live),
+        step(parent, live))
+    geom = pe_array.run_cycles_geometry(1, P, M, 1, 1)
+    emit({"phase": "timing", "kernel": "pe_array.cycle_step (floor)",
+          "B": 1, "P": P, "M": M, "layout": LAYOUT_NAMES[geom.layout],
+          **{f"{name}_device_us": us(ms) for name, (ms, _, _)
+             in floors.items()},
+          "live_row_host_paced_us": us(paced_ms),
+          **({} if parent is None else {
+              **{f"parent_{name}_device_us": us(pm) for name, (_, pm, _)
+                 in floors.items()},
+              **{f"turns_{name}_device_us": tu for name, (_, _, tu)
+                 in floors.items()},
+              "parent_live_row_host_paced_us": us(parent_paced_ms),
+              "turns_live_row_host_paced_us": paced_turns})})
     return out
 
 
@@ -2317,8 +2416,8 @@ def main(argv=None) -> int:
                                              "GPU (see the module docstring)")
     ap.add_argument("--parent", metavar="DIR",
                     help="a copy of the parent commit's src/repro_torch/"
-                         "kernels: phases 6b/6c time its whole-program "
-                         "kernel in turns with this one")
+                         "kernels: phases 6, 6b and 6c time its kernels in "
+                         "turns with this one's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2364,8 +2463,8 @@ def main(argv=None) -> int:
     triage_phase(device)
     stream_phase(device)
     profile_phase(device)
-    step_times = timing(device)
     parent = parent_kernels(args.parent)
+    step_times = timing(device, parent)
     fused_times = program_timing(device, step_times, parent)
     stacked_times = stacked_timing(device, artifacts, parent)
     fleet_rows, fleet_runs = fleet_phase(artifacts, device)
@@ -2387,7 +2486,8 @@ def main(argv=None) -> int:
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None, **extra}
 
-    step_ms, _, step_plain_ms, step_bound_ms = step_times[MAIN_BATCH]
+    step_ms, _, step_plain_ms, step_bound_ms, step_bound_by = \
+        step_times[MAIN_BATCH]
     for name in LAYOUT_NAMES:
         check(sum(n[name] for n in LAYOUT_LAUNCHES.values()) > 0,
               f"the {name} layout of run_cycles was launched no time on "
@@ -2395,7 +2495,7 @@ def main(argv=None) -> int:
     emit({"phase": "done", "seconds": round(time.monotonic() - t_start, 3)})
     emit({"kernels": [
         line("pe_array.cycle_step", steps, step_err, step_ms, step_plain_ms,
-             step_bound_ms),
+             step_bound_ms, step_bound_by),
         line("pe_array.run_cycles",
              runs + cosim_runs + warm_runs + fleet_runs + race_runs
              + sweep_runs + heuristic_runs + serve_runs,

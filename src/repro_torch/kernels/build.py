@@ -68,12 +68,9 @@ def build() -> Build:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library with its C entry points typed."""
+    """The loaded kernel library with its C entry point typed."""
     lib = ctypes.CDLL(str(build().path))
-    lib.pe_cycle_step.argtypes = ([ctypes.c_void_p] * 16
-                                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.pe_run_cycles.argtypes = ([ctypes.c_void_p] * 17
                                   + [ctypes.c_int] * 12 + [ctypes.c_void_p])
-    for fn in (lib.pe_cycle_step, lib.pe_run_cycles):
-        fn.restype = ctypes.c_int
+    lib.pe_run_cycles.restype = ctypes.c_int
     return lib

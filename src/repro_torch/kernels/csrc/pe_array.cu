@@ -1,16 +1,14 @@
-// CGRA PE-array execution for Hopper (sm_90a), written by hand: the one-cycle
-// kernel and the whole-program kernel, in two layouts.
+// CGRA PE-array execution for Hopper (sm_90a), written by hand: every row
+// of a program in one launch, in two layouts.  One cycle is a one-row
+// launch of the same kernels, so this file holds the ISA's semantics for
+// the card once.
 //
-// cycle_step_kernel replaces repro/kernels/pe_array.py::_cycle_kernel
-// (launched there by cycle_step_pallas through pl.pallas_call).  It computes
-// what that kernel and repro_torch/kernels/ref.py::cycle_step_ref compute:
-// one CGRA cycle for a batch of independent PE arrays that run the same
-// instruction row.
-//
-// run_cycles_kernel replaces the lax.scan of that kernel over the T rows of
-// a program (repro/kernels/ops.py:71, run_program): it computes what T
-// successive cycle_step_ref calls compute, the out trace (T, B, P) and the
-// final state, in one launch.  Its kStacked instance also replaces the
+// run_cycles_kernel replaces the lax.scan of repro/kernels/pe_array.py::
+// _cycle_kernel (launched there by cycle_step_pallas through
+// pl.pallas_call) over the T rows of a program (repro/kernels/ops.py:71,
+// run_program): it computes what T successive ref.py::cycle_step_ref calls
+// compute, the out trace (T, B, P) and the final state, in one launch.
+// Its kStacked instance also replaces the
 // jax.vmap of that scan over K same-grid programs (repro/fuzz/engine.py:508,
 // run_stacked): K programs of T rows each (shorter ones NOP-padded by the
 // caller) over K state stacks, the trace (K, T, B, P), one launch, and
@@ -18,18 +16,23 @@
 // the same in another layout; pe_array.py::run_cycles_geometry chooses
 // between them from the shape, and both replace the same TPU constructs.
 //
-// cycle_step_kernel design: one thread per (batch row b, PE p); a block
-// holds kThreads / P whole batch rows.  Every thread reads only the
-// pre-cycle input buffers (regs, out, sf, zf, mem) and writes separate
-// output buffers, so neighbour OUT reads, BSFA/BZFA flag reads and loads
-// all see the state from before the cycle.  The block copies its rows of
-// mem into mem_o, synchronises, then applies its stores to mem_o: stores
-// commit at the end of the cycle, and a load and a store to one address in
-// one cycle read the old value.  Loads and stores address memory directly;
-// the TPU kernel's one-hot masking was a choice for the TPU's vector units.
-// Any B (the last block may be ragged), any P up to kThreads, any M.
-// operand() and alu() below select without branching, because the PEs of
-// one warp run different instructions there.
+// One cycle (pe_array.py::cycle_step, which replaces _cycle_kernel itself)
+// is a launch of T = 1 rows without a trace: the row's (P,) fields are a
+// (1, P) program, and the state goes from the input buffers to the *_o
+// buffers as for any program.  A load and a store to one address in one
+// cycle read the old value, and stores commit at the end of the cycle, by
+// the same rules as any row (below).  run_cycles_geometry runs every
+// one-row launch in the lane layout where it fits (P <= 32, a block's
+// image in 96 KB), at any B, and the rest (P up to 256, any M) in the
+// uniform layout; what bounds such a launch is below.  A one-row launch
+// of one program runs the kOneRow instance of run_lanes_kernel: the same
+// row compiled for T = 1, with no block barrier (it reads its opcode's
+// control word from the table in device memory) and no staged image (its
+// warp copies its rows from mem to mem_o, its loads read mem and its
+// stores write mem_o after that copy), capped at 32 registers so that an
+// SM holds 16 of its blocks (64 warps) and B = 16384 at P = 16 (8,192
+// warps) runs in one wave; the general instance takes about 70
+// registers, half as many warps an SM.
 //
 // run_cycles_kernel design.  Instruction (t, p) is the same for every batch
 // row, so the batch rows go along the lanes: a block holds R batch rows
@@ -100,11 +103,13 @@
 // lane; the warp's rows of the memory image sit in shared memory.  Lanes
 // run different opcodes, so the ALU selects without branching: the
 // candidates of eight result classes, then a 3-level select tree on the
-// class from a 32-entry table (lane_control).  Row t + 1 is decoded (its
-// control word and three warp votes: live, loads, stores) and row t + 2
-// fetched (__ldg: a row's fields are the same for every warp of the
-// launch) while row t runs.  An all-NOP row costs its trace store and the
-// loop's own chain; a row loads from shared
+// class from a 32-entry table (lane_control, made by the compiler).  The
+// prologue fetches the first two rows' fields before it stages the state
+// and the image (by cp.async), so that it waits on device memory once.
+// Row t + 1 is decoded (its control word and three warp votes: live,
+// loads, stores) and row t + 2 fetched (__ldg: a row's fields are the same
+// for every warp of the launch) while row t runs.  An all-NOP row costs
+// its trace store and the loop's own chain; a row loads from shared
 // memory only where some lane loads, and crosses __syncwarp, before and
 // after its stores, only where some lane stores: the first orders every
 // load of row t before every store of row t, the second the stores of row
@@ -121,7 +126,8 @@
 //    JAX ref computes with x64 off, not the exact product of
 //    isa.alu_semantics.
 //  * Addresses are a (+ imm for LWI/SWI), wrapped to int32, clamped to
-//    [0, M-1].
+//    [0, M-1].  Loads and stores address the image directly; the TPU
+//    kernel's one-hot masking was a choice for the TPU's vector units.
 //  * Every op but NOP writes OUT and the sign/zero flags; dst 0-3 also writes
 //    that register, 4-7 write none.
 //  * Selectors 11-15 read ZERO and opcodes 27-31 yield 0, as in the Pallas
@@ -132,9 +138,19 @@
 //
 // Bounds, on 3.35 TB/s of HBM and 132 SMs x 64 INT32 lanes at 1.98 GHz
 // (16.7 T int32 operations/s):
-//  * cycle_step_kernel moves the state in and out once, 2 * 4 * B * (7P + M)
-//    bytes: 1.97 MB at B=1024, P=16, M=128, 0.6 us, below the cost of one
-//    launch.  One launch per cycle is launch-bound by construction.
+//  * One cycle moves the state in and out once, 2 * 4 * B * (7P + M)
+//    bytes: 1.97 MB at B=1024, P=16, M=128, 0.59 us; 31.5 MB at B=16384,
+//    9.4 us.  Up to thousands of batch rows that is below the floor of any
+//    launch (the launch itself, a round trip to device memory to stage the
+//    state, one row's chain, the write-back), so a one-cycle launch is
+//    launch-bound by construction.  The lane layout keeps that floor
+//    short: no barrier, one round trip to device memory before the row
+//    (the fields, the state and the image copy issued together), the row
+//    one warp's chain of instructions, and at large B one wave of warps
+//    whose coalesced copies of the state spread over the card.  The
+//    uniform layout's fixed prologue (the program staged and packed, the
+//    state transposed into the register files and back) has no row loop
+//    to pay for it at T = 1.
 //  * run_cycles_kernel moves 2 * 4 * B * (7P + M) + 4 * T * B * P
 //    + 20 * T * P bytes (state in and out once, the trace written once, the
 //    instructions read once): 7.50 MB at T=84, B=1024, 2.24 us; 119.6 MB at
@@ -166,120 +182,7 @@ enum Op : int {
   MOV
 };
 
-constexpr int kThreads = 256;
 constexpr int kFxpFracBits = 16;
-
-// operand() and alu() select their result without branching: the PEs of a
-// warp run different opcodes and selectors, and a switch makes the warp
-// take every case its lanes need one after another.
-__device__ __forceinline__ int32_t operand(int sel, const int32_t* regs_bp,
-                                           const int32_t* out_b, int p,
-                                           const int32_t* nbr_p, int32_t imm) {
-  const unsigned s = static_cast<unsigned>(sel);
-  int32_t reg = regs_bp[0];
-  reg = s == 1u ? regs_bp[1] : reg;
-  reg = s == 2u ? regs_bp[2] : reg;
-  reg = s == 3u ? regs_bp[3] : reg;
-  int col = p;                       // 4 = own OUT, 5-8 = N/E/S/W
-  col = s == 5u ? nbr_p[0] : col;
-  col = s == 6u ? nbr_p[1] : col;
-  col = s == 7u ? nbr_p[2] : col;
-  col = s == 8u ? nbr_p[3] : col;
-  const int32_t nbr_out = out_b[col];
-  // 10 = ZERO; 11-15 unused, read as ZERO
-  return s < 4u ? reg : (s < 9u ? nbr_out : (s == 9u ? imm : 0));
-}
-
-__device__ __forceinline__ int32_t alu(int op, int32_t a, int32_t b,
-                                       int32_t sf, int32_t zf) {
-  const uint32_t ua = static_cast<uint32_t>(a);
-  const uint32_t ub = static_cast<uint32_t>(b);
-  const uint32_t sh = ub & 31u;
-  const int32_t prod = static_cast<int32_t>(ua * ub);
-  int32_t r = 0;  // NOP, JUMP, EXIT, loads (replaced), 27-31
-  r = (op == SADD || op == MOV) ? static_cast<int32_t>(ua + ub) : r;
-  r = (op == SSUB || (op >= BEQ && op <= BGE))
-          ? static_cast<int32_t>(ua - ub) : r;
-  r = op == SMUL ? prod : r;
-  r = op == FXPMUL ? prod >> kFxpFracBits : r;
-  r = op == SLT ? static_cast<int32_t>(ua << sh) : r;
-  r = op == SRT ? static_cast<int32_t>(ua >> sh) : r;
-  r = op == SRA ? a >> sh : r;
-  r = op == LAND ? a & b : r;
-  r = op == LOR ? a | b : r;
-  r = op == LXOR ? a ^ b : r;
-  r = op == LNAND ? ~(a & b) : r;
-  r = op == LNOR ? ~(a | b) : r;
-  r = op == LXNOR ? ~(a ^ b) : r;
-  r = op == BSFA ? (sf > 0 ? a : b) : r;
-  r = op == BZFA ? (zf > 0 ? a : b) : r;
-  r = (op == SWD || op == SWI) ? b : r;
-  return r;
-}
-
-__device__ __forceinline__ int address(int op, int32_t a, int32_t imm, int M) {
-  const bool imm_addr = op == LWI || op == SWI;
-  const int32_t raw = static_cast<int32_t>(
-      static_cast<uint32_t>(a) + static_cast<uint32_t>(imm_addr ? imm : 0));
-  return raw < 0 ? 0 : (raw > M - 1 ? M - 1 : raw);
-}
-
-__global__ void __launch_bounds__(kThreads)
-cycle_step_kernel(const int32_t* __restrict__ op_row,
-                  const int32_t* __restrict__ dst_row,
-                  const int32_t* __restrict__ sa_row,
-                  const int32_t* __restrict__ sb_row,
-                  const int32_t* __restrict__ imm_row,
-                  const int32_t* __restrict__ nbr,
-                  const int32_t* __restrict__ regs,
-                  const int32_t* __restrict__ out,
-                  const int32_t* __restrict__ sf,
-                  const int32_t* __restrict__ zf,
-                  const int32_t* __restrict__ mem,
-                  int32_t* __restrict__ regs_o, int32_t* __restrict__ out_o,
-                  int32_t* __restrict__ sf_o, int32_t* __restrict__ zf_o,
-                  int32_t* __restrict__ mem_o, int B, int P, int M) {
-  const int rows_per_block = blockDim.x / P;
-  const int b0 = blockIdx.x * rows_per_block;
-  const int nrows = min(rows_per_block, B - b0);
-
-  // stores commit at the end of the cycle: start from the pre-cycle image
-  const int64_t mbase = static_cast<int64_t>(b0) * M;
-  const int words = nrows * M;
-  for (int i = threadIdx.x; i < words; i += blockDim.x)
-    mem_o[mbase + i] = mem[mbase + i];
-  __syncthreads();
-
-  const int local = threadIdx.x / P;
-  const int p = threadIdx.x - local * P;
-  if (local >= nrows) return;
-  const int b = b0 + local;
-  const int64_t bp = static_cast<int64_t>(b) * P + p;
-
-  const int op = op_row[p];
-  const int32_t imm = imm_row[p];
-  const int32_t* regs_bp = regs + bp * 4;
-  const int32_t* out_b = out + static_cast<int64_t>(b) * P;
-  const int32_t* nbr_p = nbr + p * 4;
-  const int32_t a = operand(sa_row[p], regs_bp, out_b, p, nbr_p, imm);
-  const int32_t bv = operand(sb_row[p], regs_bp, out_b, p, nbr_p, imm);
-  int32_t res = alu(op, a, bv, sf[bp], zf[bp]);
-
-  const int addr = address(op, a, imm, M);
-  const int32_t* mem_b = mem + static_cast<int64_t>(b) * M;
-  if (op == LWD || op == LWI) res = mem_b[addr];
-  if (op == SWD || op == SWI) mem_o[static_cast<int64_t>(b) * M + addr] = bv;
-
-  int32_t* regs_o_bp = regs_o + bp * 4;
-  const bool executed = op != NOP;
-  const int dst = dst_row[p];
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    regs_o_bp[k] = (executed && dst == k) ? res : regs_bp[k];
-  out_o[bp] = executed ? res : out_b[p];
-  sf_o[bp] = executed ? static_cast<int32_t>(res < 0) : sf[bp];
-  zf_o[bp] = executed ? static_cast<int32_t>(res == 0) : zf[bp];
-}
 
 // ---------------------------------------------------------------------------
 // run_cycles_kernel
@@ -306,7 +209,7 @@ constexpr unsigned kImmB = 1u << 25;     // b is imm
 constexpr unsigned kImmAddr = 1u << 26;  // LWI/SWI: the address is a + imm
 constexpr unsigned kExec = 1u << 27;     // op is not NOP
 
-__device__ constexpr unsigned alu_control(int op) {
+__host__ __device__ constexpr unsigned alu_control(int op) {
   switch (op) {
     case SADD: case MOV: return kAdd << kClassShift;
     case SSUB: case BEQ: case BNE: case BLT: case BGE:
@@ -331,6 +234,22 @@ __device__ constexpr unsigned alu_control(int op) {
     default: return kZero << kClassShift;  // JUMP, EXIT, 27-31, any other
   }
 }
+
+// The control words of opcodes 0-31, made by the compiler.  A kernel
+// copies them to shared memory with one coalesced load: filling its table
+// with a switch on each lane's opcode diverges, and the block waited for
+// it at a barrier on every launch.
+struct ControlTable {
+  unsigned ctl[32];
+};
+
+__host__ __device__ constexpr ControlTable alu_table() {
+  ControlTable t{};
+  for (int op = 0; op < 32; ++op) t.ctl[op] = alu_control(op);
+  return t;
+}
+
+__device__ const ControlTable kAluTable = alu_table();
 
 // The register file of one lane, file[slot * S + r]: PE p's registers at
 // slots 4p..4p+3, its OUT in buffer c at slot 4P + cP + p, its flags at
@@ -558,7 +477,7 @@ run_cycles_kernel(const int32_t* __restrict__ op_f,
   cp_async_commit();
   if (tid == 0) *last_s = -1;
   if (tid < S) file[zero_slot * S + tid] = 0;
-  for (int e = tid; e < 32; e += nthreads) alu_tab[e] = alu_control(e);
+  for (int e = tid; e < 32; e += nthreads) alu_tab[e] = kAluTable.ctl[e];
   for (int e = tid; e < slots * (C + 1); e += nthreads) flags[e] = 0;
 
   bool pe_on[kPe];                  // PE slot j of this thread exists
@@ -833,7 +752,7 @@ constexpr unsigned lFxp = 1u << 7;       // >> 16 of the product
 constexpr unsigned lImmAddr = 1u << 8;   // LWI/SWI: the address is a + imm
 constexpr unsigned lStore = 1u << 9;
 
-__device__ constexpr unsigned lane_control(int op) {
+__host__ __device__ constexpr unsigned lane_control(int op) {
   switch (op) {
     case SADD: case MOV: return lAddSub;
     case SSUB: case BEQ: case BNE: case BLT: case BGE: return lAddSub | lNeg;
@@ -858,6 +777,14 @@ __device__ constexpr unsigned lane_control(int op) {
   }
 }
 
+__host__ __device__ constexpr ControlTable lane_table() {
+  ControlTable t{};
+  for (int op = 0; op < 32; ++op) t.ctl[op] = lane_control(op);
+  return t;
+}
+
+__device__ const ControlTable kLaneTable = lane_table();
+
 // A source of the lane layout: register sel (0-3), the OUT of lane `lane`
 // by shuffle (4-8), imm (9) or zero (10-15), without a branch.
 __device__ __forceinline__ int32_t lane_operand(unsigned sel,
@@ -879,11 +806,18 @@ __device__ __forceinline__ int source_lane(unsigned sel, unsigned nl,
                        : lane;
 }
 
-// kStacked as in run_cycles_kernel.  W = 32 / P batch rows a warp; the
-// block's warps each run their own rows, and nothing but the control
-// table is shared between them.
-template <bool kStacked>
-__global__ void __launch_bounds__(kLanes * kLaneWarps)
+// Blocks an SM must hold at once: the kOneRow instance (one row, K = 1:
+// cycle_step) is capped at 32 registers so that 16 blocks, 64 warps, fit
+// an SM and B = 16384 at P = 16 (8,192 warps) runs in one wave.
+template <bool kOneRow>
+constexpr int lane_min_blocks() { return kOneRow ? 16 : 1; }
+
+// kStacked as in run_cycles_kernel; kOneRow compiles the same body for
+// T = 1.  W = 32 / P batch rows a warp; the block's warps each run their
+// own rows, and nothing but the control table is shared between them.
+template <bool kStacked, bool kOneRow>
+__global__ void __launch_bounds__(kLanes * kLaneWarps,
+                                  lane_min_blocks<kOneRow>())
 run_lanes_kernel(const int32_t* __restrict__ op_f,
                  const int32_t* __restrict__ dst_f,
                  const int32_t* __restrict__ sa_f,
@@ -902,6 +836,7 @@ run_lanes_kernel(const int32_t* __restrict__ op_f,
   extern __shared__ int32_t smem[];
   __shared__ unsigned tab[32];
 
+  if constexpr (kOneRow) T = 1;
   if constexpr (kStacked) {  // program k of the stack: its arrays' slices
     const int64_t k = blockIdx.y;
     const int64_t fk = k * T * P, sk = k * B * P, mk = k * B * M;
@@ -920,14 +855,60 @@ run_lanes_kernel(const int32_t* __restrict__ op_f,
   const bool active = local < rows;          // false past W * P and B
   const int64_t bp = static_cast<int64_t>(b0 + local) * P + p;
   int32_t* img = smem + warp * W * M;        // [W][M], the warp's rows
-  int32_t* mem_row = img + min(local, W - 1) * M;
+  // The row's loads read load_row and its stores write mem_row: the
+  // lane's row of the staged image, or for one row (kOneRow) its batch
+  // row's input and output in device memory.  Lanes past the batch read
+  // the warp's last row and store nothing.
+  const int32_t* load_row;
+  int32_t* mem_row;
+  if constexpr (kOneRow) {
+    load_row = mem + static_cast<int64_t>(b0 + min(local, max(rows, 1) - 1))
+                         * M;
+    mem_row = mem_o + static_cast<int64_t>(b0 + local) * M;
+  } else {
+    mem_row = img + min(local, W - 1) * M;
+    load_row = mem_row;
+  }
   const int64_t mbase = static_cast<int64_t>(b0) * M;
 
-  for (int e = threadIdx.x; e < 32; e += blockDim.x) tab[e] = lane_control(e);
-  __syncthreads();
+  // Row t runs while row t + 1 is decoded (its control word from the
+  // table, and the warp's votes: the row is live, it loads, it stores)
+  // and the fields of row t + 2 are fetched, so that the chain of row t
+  // waits on no table read.  The first two rows are fetched before the
+  // state is staged, so that their latency overlaps the staging's (one
+  // round trip to device memory in the prologue, not two).
+  const int32_t* f_op = op_f + p;
+  const int32_t* f_dst = dst_f + p;
+  const int32_t* f_sa = sa_f + p;
+  const int32_t* f_sb = sb_f + p;
+  const int32_t* f_imm = imm_f + p;
+  int op = __ldg(f_op), dst = __ldg(f_dst), sa = __ldg(f_sa),
+      sb = __ldg(f_sb), imm = __ldg(f_imm);
+  int n_op = 0, n_dst = 0, n_sa = 0, n_sb = 0, n_imm = 0;
+  auto fetch = [&]() {
+    f_op += P; f_dst += P; f_sa += P; f_sb += P; f_imm += P;
+    n_op = __ldg(f_op);
+    n_dst = __ldg(f_dst);
+    n_sa = __ldg(f_sa);
+    n_sb = __ldg(f_sb);
+    n_imm = __ldg(f_imm);
+  };
+  if (T > 1) fetch();
+  if constexpr (!kOneRow) {  // one row reads the table once, directly
+    for (int e = threadIdx.x; e < 32; e += blockDim.x)
+      tab[e] = kLaneTable.ctl[e];
+    __syncthreads();
+  }
   if (rows == 0) return;                     // no block barrier follows
 
-  for (int e = lane; e < rows * M; e += kLanes) img[e] = mem[mbase + e];
+  if constexpr (kOneRow) {   // no row reads the image twice: copy it over
+    for (int e = lane; e < rows * M; e += kLanes)
+      mem_o[mbase + e] = mem[mbase + e];
+  } else {
+    for (int e = lane; e < rows * M; e += kLanes)
+      cp_async4(img + e, mem + mbase + e);
+    cp_async_commit();
+  }
   int32_t r0 = 0, r1 = 0, r2 = 0, r3 = 0, own = 0, s = 0, z = 0;
   if (active) {
     r0 = regs[bp * 4];
@@ -946,30 +927,14 @@ run_lanes_kernel(const int32_t* __restrict__ op_f,
         ? col : p;
     nl |= static_cast<unsigned>(local * P + nb) << (8 * k);
   }
-  __syncwarp();                              // the image has landed
+  if constexpr (!kOneRow) {
+    cp_async_wait_all();
+    __syncwarp();                            // the image has landed
+  }
 
-  // Row t runs while row t + 1 is decoded (its control word from the
-  // table, and the warp's votes: the row is live, it loads, it stores)
-  // and the fields of row t + 2 are fetched, so that the chain of row t
-  // waits on no table read.
-  const int32_t* f_op = op_f + p;
-  const int32_t* f_dst = dst_f + p;
-  const int32_t* f_sa = sa_f + p;
-  const int32_t* f_sb = sb_f + p;
-  const int32_t* f_imm = imm_f + p;
-  int op = __ldg(f_op), dst = __ldg(f_dst), sa = __ldg(f_sa),
-      sb = __ldg(f_sb), imm = __ldg(f_imm);
-  int n_op = 0, n_dst = 0, n_sa = 0, n_sb = 0, n_imm = 0;
-  auto fetch = [&]() {
-    f_op += P; f_dst += P; f_sa += P; f_sb += P; f_imm += P;
-    n_op = __ldg(f_op);
-    n_dst = __ldg(f_dst);
-    n_sa = __ldg(f_sa);
-    n_sb = __ldg(f_sb);
-    n_imm = __ldg(f_imm);
-  };
-  if (T > 1) fetch();
-  unsigned ctl = tab[min(static_cast<unsigned>(op), 31u)];
+  unsigned ctl = kOneRow ? __ldg(kLaneTable.ctl +
+                                 min(static_cast<unsigned>(op), 31u))
+                         : tab[min(static_cast<unsigned>(op), 31u)];
   bool live = __any_sync(kFull, op != NOP);
   bool loads = __any_sync(kFull, (ctl & 7u) == lLoad);
   bool stores = __any_sync(kFull, ctl & lStore);
@@ -997,7 +962,7 @@ run_lanes_kernel(const int32_t* __restrict__ op_f,
       const uint32_t ub = static_cast<uint32_t>(bv);
       const int addr = clamp_address(a, (ctl & lImmAddr) ? imm : 0, M);
       int32_t loaded = 0;
-      if (loads) loaded = mem_row[addr];     // warp-uniform
+      if (loads) loaded = load_row[addr];    // warp-uniform
       const unsigned sub = (ctl >> lSubShift) & 3u;
       const uint32_t neg = (ctl & lNeg) ? ~0u : 0u;
       const uint32_t sh = ub & 31u;
@@ -1019,7 +984,8 @@ run_lanes_kernel(const int32_t* __restrict__ op_f,
       const int32_t l3 = c0 ? 0 : loaded;
       const int32_t res = c2 ? (c1 ? l3 : l2) : (c1 ? l1 : l0);
       if (stores) {                          // warp-uniform
-        __syncwarp();                        // every load of row t is done
+        __syncwarp();  // every load of row t is done (kOneRow: and the
+                       // copy of the image to mem_o has landed)
         if (active && (ctl & lStore)) mem_row[addr] = bv;
         __syncwarp();                        // row t + 1 sees the stores
       }
@@ -1059,8 +1025,10 @@ run_lanes_kernel(const int32_t* __restrict__ op_f,
     sf_o[bp] = s;
     zf_o[bp] = z;
   }
-  __syncwarp();                              // the last stores
-  for (int e = lane; e < rows * M; e += kLanes) mem_o[mbase + e] = img[e];
+  if constexpr (!kOneRow) {
+    __syncwarp();                            // the last stores
+    for (int e = lane; e < rows * M; e += kLanes) mem_o[mbase + e] = img[e];
+  }
 }
 
 constexpr int kDefaultSharedBytes = 48 * 1024;
@@ -1085,26 +1053,6 @@ decltype(&run_cycles_kernel<kStacked, 1>) run_cycles_instance(int pes) {
 // out/sf/zf (B, P), mem (B, M); the *_o buffers must not alias the inputs.
 // Each launches on `stream` and returns cudaGetLastError() (0 = launched).
 
-// One cycle: instruction row fields (P,).
-extern "C" int pe_cycle_step(const int32_t* op, const int32_t* dst,
-                             const int32_t* sa, const int32_t* sb,
-                             const int32_t* imm, const int32_t* nbr,
-                             const int32_t* regs, const int32_t* out,
-                             const int32_t* sf, const int32_t* zf,
-                             const int32_t* mem, int32_t* regs_o,
-                             int32_t* out_o, int32_t* sf_o, int32_t* zf_o,
-                             int32_t* mem_o, int B, int P, int M,
-                             cudaStream_t stream) {
-  if (B <= 0 || P <= 0 || P > kThreads || M <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int rows_per_block = kThreads / P;
-  const int blocks = (B + rows_per_block - 1) / rows_per_block;
-  cycle_step_kernel<<<blocks, kThreads, 0, stream>>>(
-      op, dst, sa, sb, imm, nbr, regs, out, sf, zf, mem, regs_o, out_o, sf_o,
-      zf_o, mem_o, B, P, M);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // T cycles of K programs: instruction fields (K, T, P), the state arrays
 // with a leading K axis (K, B, ...), outs (K, T, B, P) or null for no
 // trace; nbr (P, 4) is shared by the K programs.  rows_per_block, threads,
@@ -1127,17 +1075,21 @@ extern "C" int pe_run_cycles(const int32_t* op, const int32_t* dst,
   const int R = rows_per_block, C = chunk_rows;
   if (layout == 1) {
     const int warps = threads / kLanes;
+    const bool one_row = K == 1 && T == 1;   // the image is not staged
     if (T <= 0 || B <= 0 || P <= 0 || P > kLanes || M <= 0 || K <= 0 ||
         K > kMaxGridY || threads % kLanes != 0 || warps <= 0 ||
         warps > kLaneWarps || R != (kLanes / P) * warps || C != T ||
-        mem_shared != 1 || static_cast<int64_t>(blocks) * R < B ||
+        mem_shared != !one_row || static_cast<int64_t>(blocks) * R < B ||
         static_cast<int64_t>(blocks - 1) * R >= B ||
-        shared_bytes != 4 * R * M || shared_bytes > kLaneSharedBytes)
+        shared_bytes != (one_row ? 0 : 4 * R * M) ||
+        shared_bytes > kLaneSharedBytes)
       return static_cast<int>(cudaErrorInvalidValue);
-    const auto lanes = K == 1 ? run_lanes_kernel<false>
-                              : run_lanes_kernel<true>;
-    static int lane_allowed[2] = {};
-    int& allow = lane_allowed[K == 1 ? 0 : 1];
+    const int instance = K > 1 ? 2 : one_row ? 1 : 0;
+    const auto lanes = instance == 2 ? run_lanes_kernel<true, false>
+                     : instance == 1 ? run_lanes_kernel<false, true>
+                                     : run_lanes_kernel<false, false>;
+    static int lane_allowed[3] = {};
+    int& allow = lane_allowed[instance];
     if (shared_bytes > kDefaultSharedBytes && shared_bytes > allow) {
       const cudaError_t set = cudaFuncSetAttribute(
           lanes, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);

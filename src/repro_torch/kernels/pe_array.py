@@ -1,24 +1,26 @@
 """The CGRA PE array on the card: wrappers of the hand-written CUDA kernels
 in ``csrc/pe_array.cu``.
 
-``cycle_step`` launches ``cycle_step_kernel``, one cycle, which replaces
-``repro/kernels/pe_array.py``'s Pallas ``_cycle_kernel``.  ``run_cycles``
-launches ``run_cycles_kernel``, every row of a program in one launch, which
-replaces the ``lax.scan`` of that kernel in ``repro/kernels/ops.py``; given
-a stack of K same-grid programs it runs them all in that one launch, which
-replaces the ``jax.vmap`` of the scan in ``repro/fuzz/engine.py``.
+``run_cycles`` runs every row of a program in one launch, which replaces
+the ``lax.scan`` of ``repro/kernels/pe_array.py``'s Pallas ``_cycle_kernel``
+in ``repro/kernels/ops.py``; given a stack of K same-grid programs it runs
+them all in that one launch, which replaces the ``jax.vmap`` of the scan in
+``repro/fuzz/engine.py``.  ``cycle_step``, one cycle, which replaces
+``_cycle_kernel`` itself, is a one-row launch of the same kernels without
+a trace: the file holds one implementation of the ISA for the card.
 
-``run_cycles`` launches one of two layouts of the program, chosen from the
-shape by :func:`run_cycles_geometry`: ``run_lanes_kernel`` (a lane a
-batch row and PE) for launches small enough to be bound by the latency
-of a row, ``run_cycles_kernel`` (a lane a batch row, a warp a PE) for the
-rest.
+A launch takes one of two layouts of the program, chosen from the shape by
+:func:`run_cycles_geometry`: ``run_lanes_kernel`` (a lane a batch row and
+PE) for launches small enough to be bound by the latency of a row, and
+for one-row launches wherever it fits; ``run_cycles_kernel`` (a lane a
+batch row, a warp a PE) for the rest.
 
 Each wrapper launches its kernel for CUDA tensors and raises if it cannot.
 CPU tensors go to the plain versions, ``ref.cycle_step_ref``,
 ``ref.run_cycles_ref`` and ``ref.run_stacked_ref``.  ``cycle_step.launches``
-and ``run_cycles.launches`` count kernel launches and nothing else;
-``run_cycles.lane_launches`` counts those of them in the lane layout.
+and ``run_cycles.launches`` count the launches each wrapper makes and
+nothing else; ``run_cycles.lane_launches`` counts those of
+``run_cycles``'s in the lane layout.
 """
 from __future__ import annotations
 
@@ -31,8 +33,7 @@ from . import build
 from .ref import (InstrRow, PEState, cycle_step_ref, run_cycles_ref,
                   run_stacked_ref)
 
-MAX_THREADS = 256                  # kThreads in csrc/pe_array.cu
-MAX_PES = 256                      # PEs run_cycles takes
+MAX_PES = 256                      # PEs the kernels take (kMaxPes)
 LANES = 32
 TARGET_BLOCKS = 128                # blocks run_cycles spreads a launch over
 MAX_SHARED_BYTES = 232_448         # 227 KB a block on sm_90
@@ -71,8 +72,8 @@ def _check(state: PEState, fields: InstrRow, field_shape: Tuple[int, ...],
             if src.data_ptr() == dst.data_ptr():
                 raise ValueError("output buffers must not alias the input "
                                  "state")
-    if not 0 < P <= MAX_THREADS:
-        raise ValueError(f"{P} PEs: the kernels take 1 to {MAX_THREADS}")
+    if not 0 < P <= MAX_PES:
+        raise ValueError(f"{P} PEs: the kernels take 1 to {MAX_PES}")
 
 
 def _raise_check(state, fields, field_shape, neighbors, out, shapes):
@@ -104,12 +105,28 @@ def _stream(device: torch.device) -> int:
     return raw(device.index)
 
 
+def _launch(fields: InstrRow, state: PEState, neighbors: torch.Tensor,
+            out: PEState, outs: Optional[torch.Tensor], T: int, B: int,
+            P: int, M: int, geom: Geometry, device: torch.device) -> None:
+    """One ``pe_run_cycles`` launch of checked tensors on ``device``'s
+    current stream: T rows from ``state`` into ``out``, the trace into
+    ``outs`` (None for none).  Raises if the launch fails."""
+    ptrs = [t.data_ptr() for t in (*fields, neighbors, *state, *out)]
+    status = build.library().pe_run_cycles(
+        *ptrs, None if outs is None else outs.data_ptr(), T, B, P, M, *geom,
+        _stream(device))
+    if status != 0:
+        raise RuntimeError(f"pe_run_cycles launch failed: cudaError {status}")
+
+
 def cycle_step(state: PEState, instr: InstrRow, neighbors: torch.Tensor,
                out: Optional[PEState] = None) -> PEState:
     """One CGRA cycle.  ``neighbors`` is the (P, 4) int32 N/E/S/W table on
     the state's device, every entry in ``[0, P)``.  The new state goes into
     ``out`` when given (buffers that must not alias ``state``), else into
-    fresh tensors."""
+    fresh tensors.  On the card it is one launch of ``run_cycles``'s
+    kernels: the row as a one-row program, no trace, in the layout that
+    ``run_cycles_geometry(B, P, M, 1, 1)`` gives."""
     device = state.out.device
     if device.type == "cpu":
         new = cycle_step_ref(state, instr, neighbors)
@@ -125,10 +142,8 @@ def cycle_step(state: PEState, instr: InstrRow, neighbors: torch.Tensor,
     B, P = state.out.shape
     _check(state, instr, (P,), neighbors, out)
     M = state.mem.shape[1]
-    ptrs = [t.data_ptr() for t in (*instr, neighbors, *state, *out)]
-    status = build.library().pe_cycle_step(*ptrs, B, P, M, _stream(device))
-    if status != 0:
-        raise RuntimeError(f"pe_cycle_step launch failed: cudaError {status}")
+    _launch(instr, state, neighbors, out, None, 1, B, P, M,
+            run_cycles_geometry(B, P, M, 1, 1), device)
     cycle_step.launches += 1
     return out
 
@@ -164,32 +179,39 @@ def run_cycles_geometry(B: int, P: int, M: int, K: int = 1, T: int = 1,
     B batch rows of P PEs and M memory words, in ``layout`` (by default
     the one chosen below).
 
-    ``LANE_LAYOUT`` (``run_lanes_kernel``) runs a launch of at most
-    ``LANES_MAX_WARPS`` warps at one lane a (batch row, PE), where
-    :func:`lanes_fit`: such a launch is bound by the latency of one row,
-    which this layout keeps shortest.  A block is ``LANE_WARPS`` warps of
-    32 // P batch rows each, and holds their memory image.  Every other
-    launch runs ``UNIFORM_LAYOUT`` (``run_cycles_kernel``).
+    ``LANE_LAYOUT`` (``run_lanes_kernel``) runs, where :func:`lanes_fit`,
+    a launch of at most ``LANES_MAX_WARPS`` warps at one lane a (batch
+    row, PE): such a launch is bound by the latency of one row, which this
+    layout keeps shortest.  It also runs every one-row launch (T = 1,
+    ``cycle_step``) at any B: with no row loop to amortise the uniform
+    layout's staging and packing, its prologue costs more than the lane
+    layout's at every B measured.  A block is ``LANE_WARPS`` warps of
+    32 // P batch rows each, and holds their memory image; a one-row
+    launch of one program stages none (shared bytes 0, the image in
+    device memory) but keeps to the same fit: a larger image is copied by
+    the uniform layout's blocks, not by one warp.  Every other launch
+    runs ``UNIFORM_LAYOUT`` (``run_cycles_kernel``).
 
     ``UNIFORM_LAYOUT``: lanes are batch rows: R, the largest power of two
     up to 32 that still gives ``TARGET_BLOCKS`` blocks over the K programs (R = 8 at B = 1024,
     32 at B = 16384), halved while the transposed image, M x (R | 1) words,
     and the lanes' register files, (8P + 2) x (R | 1), are above
     ``IMAGE_SHARED_BYTES``; where even R = 1 leaves no room for two program
-    rows, the image stays in device memory.  A warp runs
-    ``pes_per_warp(P)`` PEs in turn.  The program takes T rows of
+    rows, the image stays in device memory (``mem_o``), at any M.  A warp
+    runs ``pes_per_warp(P)`` PEs in turn.  The program takes T rows of
     8P + 1 words (and a word) when they fit in ``PROGRAM_SHARED_BYTES``
     (and the 227 KB a block may have), else a ring of two chunks.  Raises
-    where one batch row of image and OUT, 4 (M + 2P) bytes, is above 227
-    KB, or where ``layout`` is the lane layout and P, M do not fit it."""
+    where ``layout`` is the lane layout and P, M do not fit it, or where
+    the block does not fit in 227 KB even without the image."""
     if not 0 < P <= MAX_PES:
         raise ValueError(f"{P} PEs: run_cycles takes 1 to {MAX_PES}")
     if not 0 < K <= MAX_PROGRAMS:
         raise ValueError(f"{K} programs: one launch takes 1 to "
                          f"{MAX_PROGRAMS}")
+    T = max(1, T)
     if layout is None:
-        small = lanes_fit(P, M) and K * -(-B // (LANES // P)) \
-            <= LANES_MAX_WARPS
+        small = lanes_fit(P, M) and (
+            T == 1 or K * -(-B // (LANES // P)) <= LANES_MAX_WARPS)
         layout = LANE_LAYOUT if small else UNIFORM_LAYOUT
     if layout == LANE_LAYOUT:
         if not lanes_fit(P, M):
@@ -197,13 +219,11 @@ def run_cycles_geometry(B: int, P: int, M: int, K: int = 1, T: int = 1,
                              f"{LANES} PEs and a block's image in "
                              f"{LANE_SHARED_BYTES} bytes")
         R = LANES // P * LANE_WARPS
+        if K == 1 and T == 1:    # one row reads the image once: not staged
+            return Geometry(R, LANES * LANE_WARPS, -(-B // R), 0, 1, 1, 0,
+                            LANE_LAYOUT)
         return Geometry(R, LANES * LANE_WARPS, -(-B // R), _lane_shared(R, M),
-                        K, max(1, T), 1, LANE_LAYOUT)
-    row_bytes = 4 * (M + 2 * P)
-    if row_bytes > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"M={M}, P={P}: a batch row needs {row_bytes} bytes of shared "
-            f"memory, above the {MAX_SHARED_BYTES} (227 KB) a block may have")
+                        K, T, 1, LANE_LAYOUT)
     per_block = (K * B) // TARGET_BLOCKS
     wanted = min(LANES, 1 << max(0, per_block.bit_length() - 1))
     program_row = 4 * (RECORD * P + 1)     # P records and a row's flags
@@ -225,13 +245,17 @@ def run_cycles_geometry(B: int, P: int, M: int, K: int = 1, T: int = 1,
     if not image:
         R = rows_fitting(False)
     room = min(PROGRAM_SHARED_BYTES, MAX_SHARED_BYTES - fixed(R, image))
-    T = max(1, T)
     if T * program_row + 4 <= room:      # a slot: C records and C + 1 flags
         C = T
     else:
         C = max(1, (room - 8) // (2 * program_row))
     slots = 1 if C == T else 2
     shared = fixed(R, image) + slots * (C * program_row + 4)
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"M={M}, P={P}: a block needs {shared} bytes of shared memory "
+            f"even without the image, above the {MAX_SHARED_BYTES} (227 KB) "
+            f"a block may have")
     warps = -(-P // pes_per_warp(P))
     return Geometry(R, LANES * warps, -(-B // R), shared, K, C, int(image),
                     UNIFORM_LAYOUT)
@@ -286,17 +310,7 @@ def run_cycles(fields: InstrRow, state: PEState, neighbors: torch.Tensor,
         return PEState(*(t.clone() for t in state)), outs
     geom = run_cycles_geometry(B, P, M, K, T, layout)
     out = PEState(*(torch.empty_like(t) for t in state))
-    op, dst, sa, sb, imm = fields
-    regs, o, sf, zf, mem = state
-    status = build.library().pe_run_cycles(
-        op.data_ptr(), dst.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-        imm.data_ptr(), neighbors.data_ptr(), regs.data_ptr(), o.data_ptr(),
-        sf.data_ptr(), zf.data_ptr(), mem.data_ptr(), out.regs.data_ptr(),
-        out.out.data_ptr(), out.sf.data_ptr(), out.zf.data_ptr(),
-        out.mem.data_ptr(), None if outs is None else outs.data_ptr(),
-        T, B, P, M, *geom, _stream(device))
-    if status != 0:
-        raise RuntimeError(f"pe_run_cycles launch failed: cudaError {status}")
+    _launch(fields, state, neighbors, out, outs, T, B, P, M, geom, device)
     run_cycles.launches += 1
     if geom.layout == LANE_LAYOUT:
         run_cycles.lane_launches += 1

@@ -1,6 +1,7 @@
-"""The CUDA kernels (cycle step and whole-program run, single and stacked)
-against their plain PyTorch versions, and the fuzz path's stacked run,
-activity harvest and triage, a kernel the port mapped itself, and the
+"""The CUDA kernels (the whole-program run, single and stacked, and the
+cycle step, its one-row launch) against their plain PyTorch versions, and
+the fuzz path's stacked run, activity harvest and triage, a kernel the
+port mapped itself, and the
 traced front-end's co-simulation, swept points of the size ladder, a
 heuristic-baseline mapping and a mapping the compile server served,
 against the CPU path, on the card.
@@ -72,6 +73,98 @@ def test_kernel_matches_plain_version_every_step(cuda, side, batch, M):
             assert torch.equal(a, b), f"{name} after step {t}"
     torch.cuda.synchronize()
     assert cycle_step.launches == before + 16
+
+
+#: (grid side, batch, M) of the one-cycle launches: P from 1 to 256 on
+#: square tori (M > P), batches not a multiple of a block's rows up to
+#: 16,383, and an image of 65,536 words (device memory, uniform layout)
+STEP_SHAPES = [(1, 1, 64), (1, 16383, 128), (4, 37, 128), (4, 16383, 128),
+               (5, 1001, 128), (6, 9, 128), (6, 4097, 256), (8, 37, 128),
+               (8, 1001, 256), (16, 3, 512), (16, 1001, 512),
+               (4, 2, 65_536)]
+#: the rows a case steps through: random rows in the full encoding
+#: (selectors 11-15, opcodes 27-31), and the hazard programs (a load and a
+#: store to one address in one cycle, loads of the last cycle's stores,
+#: all-NOP rows) where P >= 2
+STEP_KINDS = [(shape, kind) for shape in STEP_SHAPES
+              for kind in ("random",) + (HAZARDS if shape[0] > 1 else ())]
+
+
+def _at_allocation_end(x, device):
+    """``x`` copied into the last elements of a fresh 2 MB allocation (one
+    segment of the caching allocator): a read past the row's P fields
+    leaves the allocation."""
+    buf = torch.empty(1 << 19, dtype=torch.int32, device=device)
+    buf[-len(x):] = torch.as_tensor(x, device=device)
+    return buf[-len(x):]
+
+
+@pytest.mark.parametrize("shape,kind", STEP_KINDS)
+def test_cycle_step_is_a_one_row_launch_in_each_layout(cuda, shape, kind):
+    """16 cycles: ``cycle_step`` (the layout its shape gets) and a one-row,
+    untraced ``run_cycles`` in each layout that takes the shape, each from
+    its own previous state, bit-equal to the plain step after every cycle;
+    each row's fields sit at the end of an allocation."""
+    from repro_torch.kernels.pe_array import run_cycles_geometry
+
+    side, batch, M = shape
+    P = side * side
+    rng = np.random.RandomState(side * 1000 + batch + M)
+    if kind == "random":
+        f = random_fields(rng, 16, P, M, full_encoding=True)
+    else:
+        f = hazard_fields(rng, kind, 16, P, M)
+    nbr = torch.as_tensor(np.asarray(neighbor_table(Grid(side, side)),
+                                     np.int32), device=cuda)
+    state = state_from_numpy(*(random_state(rng, batch, P, M)[k]
+                               for k in STATE), device=cuda)
+    layouts = (UNIFORM_LAYOUT,) + ((LANE_LAYOUT,) if lanes_fit(P, M) else ())
+    assert run_cycles_geometry(batch, P, M, 1, 1).layout == layouts[-1]
+    plain, kern = state, state
+    forced = {layout: state for layout in layouts}
+    steps = cycle_step.launches
+    for t in range(16):
+        row = ref.InstrRow(*(_at_allocation_end(f[k][t], cuda)
+                             for k in FIELDS))
+        plain = ref.cycle_step_ref(plain, row, nbr)
+        kern = cycle_step(kern, row, nbr)
+        for layout in layouts:
+            forced[layout], none = run_cycles(
+                ref.InstrRow(*(x[None] for x in row)), forced[layout], nbr,
+                trace=False, layout=layout)
+            assert none is None
+        for got, what in [(kern, "cycle_step")] + [
+                (forced[lay], f"layout {lay}") for lay in layouts]:
+            for name, a, b in zip(STATE, got, plain):
+                assert torch.equal(a, b), f"{what}: {name} after step {t}"
+    torch.cuda.synchronize()
+    assert cycle_step.launches == steps + 16
+
+
+@pytest.mark.parametrize("side,batch,M,lane", [
+    (4, 1024, 128, True), (4, 16384, 128, True), (6, 1024, 128, False),
+    (16, 37, 512, False), (4, 2, 65_536, False)])
+def test_cycle_step_counts_its_own_launches(cuda, side, batch, M, lane):
+    """Each call adds one to ``cycle_step.launches`` and nothing to
+    ``run_cycles``'s counts, though it launches ``run_cycles``'s kernels
+    (the lane layout wherever it fits, at any B)."""
+    from repro_torch.kernels.pe_array import run_cycles_geometry
+
+    f, s, nbrs = _case(side, batch, M, 1)
+    assert (run_cycles_geometry(batch, side * side, M, 1, 1).layout
+            == LANE_LAYOUT) == lane
+    nbr = torch.as_tensor(np.asarray(nbrs, np.int32), device=cuda)
+    state = state_from_numpy(*(s[k] for k in STATE), device=cuda)
+    row = fields_from_numpy(*(f[k][0] for k in FIELDS), device=cuda)
+    out = ref.PEState(*(torch.empty_like(t) for t in state))
+    before = (cycle_step.launches, run_cycles.launches,
+              run_cycles.lane_launches)
+    for i in range(3):
+        cycle_step(state, row, nbr, out=out)
+        assert (cycle_step.launches, run_cycles.launches,
+                run_cycles.lane_launches) == (before[0] + i + 1, *before[1:])
+    for a, b in zip(out, ref.cycle_step_ref(state, row, nbr)):
+        assert torch.equal(a, b)
 
 
 def test_run_program_on_the_card_matches_the_cpu(cuda):

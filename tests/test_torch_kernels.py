@@ -23,7 +23,7 @@ from repro.cgra.simulator import neighbor_table  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro_torch.convert import fields_from_numpy, state_from_numpy  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ops, pe_array, ref  # noqa: E402
 from repro_torch.kernels.pe_array import (  # noqa: E402
     LANE_LAYOUT, LANE_SHARED_BYTES, LANE_WARPS, LANES_MAX_WARPS,
     MAX_SHARED_BYTES, PROGRAM_SHARED_BYTES, UNIFORM_LAYOUT, cycle_step,
@@ -311,14 +311,18 @@ def _shared_words(geom, P, M, T):
 
 def _check_lanes(geom, B, P, M, T):
     """What the lane layout's kernel checks: whole batch rows of P PEs in
-    each warp, a block of LANE_WARPS warps and their rows' image."""
+    each warp, a block of LANE_WARPS warps and their rows' image (none
+    for one row of one program, whose image stays in device memory)."""
     W = 32 // P
     assert geom.layout == LANE_LAYOUT and geom.threads == 32 * LANE_WARPS
     assert geom.rows_per_block == W * LANE_WARPS
     R = geom.rows_per_block
     assert (geom.blocks - 1) * R < B <= geom.blocks * R
-    assert geom.shared_bytes == 4 * R * M <= LANE_SHARED_BYTES
-    assert geom.chunk_rows == max(1, T) and geom.memory_in_shared
+    one_row = max(1, T) == 1 and geom.programs == 1
+    assert geom.shared_bytes == (0 if one_row else 4 * R * M)
+    assert geom.shared_bytes <= LANE_SHARED_BYTES
+    assert geom.chunk_rows == max(1, T)
+    assert geom.memory_in_shared == (not one_row)
 
 
 def test_run_cycles_geometry_fills_the_card_at_the_main_path_batch():
@@ -360,7 +364,8 @@ def test_run_cycles_geometry_fits_48kb_on_the_sweep(B):
                 geom = run_cycles_geometry(B, P, M, T=T)
                 if geom.layout == LANE_LAYOUT:
                     assert geom == lanes and P <= 32
-                    assert -(-B // (32 // P)) <= LANES_MAX_WARPS
+                    # one-row launches take it at any B
+                    assert T == 1 or -(-B // (32 // P)) <= LANES_MAX_WARPS
                     geom = run_cycles_geometry(B, P, M, T=T,
                                                layout=UNIFORM_LAYOUT)
                 R, C = geom.rows_per_block, geom.chunk_rows
@@ -400,7 +405,11 @@ def test_run_cycles_geometry_chooses_the_lane_layout_for_small_launches(
                                            layout=UNIFORM_LAYOUT)
 
 
-def test_run_cycles_geometry_raises_past_227kb():
+def test_run_cycles_geometry_raises_past_227kb(monkeypatch):
+    """An image above what a block's 227 KB holds stays in device memory,
+    at any M; the lane layout refuses it; only a block that would not fit
+    even without the image raises (none does up to P = 256 on this card,
+    so the limit is lowered to show it)."""
     M = MAX_SHARED_BYTES // 4          # with 2P words of OUT, one row too big
     near = run_cycles_geometry(8, 16, M - 32)
     assert near.layout == UNIFORM_LAYOUT   # no lane block holds the image
@@ -409,8 +418,22 @@ def test_run_cycles_geometry_raises_past_227kb():
     assert not near.memory_in_shared   # the image stays in device memory
     assert near.shared_bytes == 4 * _shared_words(near, 16, M - 32, 1)
     assert near.shared_bytes <= MAX_SHARED_BYTES
-    with pytest.raises(ValueError, match="227 KB"):
-        run_cycles_geometry(8, 16, M)
+    for far_M in (M, 65_536, 4 * M):
+        far = run_cycles_geometry(8, 16, far_M)
+        assert far.layout == UNIFORM_LAYOUT and not far.memory_in_shared
+        assert far.shared_bytes == near.shared_bytes
+        with pytest.raises(ValueError, match="lane layout"):
+            run_cycles_geometry(8, 16, far_M, layout=LANE_LAYOUT)
+    wide = run_cycles_geometry(8, 256, 4 * M)
+    assert not wide.memory_in_shared
+    monkeypatch.setattr(pe_array, "MAX_SHARED_BYTES",
+                        wide.shared_bytes - 4)
+    run_cycles_geometry.cache_clear()
+    try:
+        with pytest.raises(ValueError, match="227 KB"):
+            run_cycles_geometry(8, 256, 4 * M)
+    finally:
+        run_cycles_geometry.cache_clear()
 
 
 @pytest.mark.parametrize("P", [33, 36, 64, 100, 256])
@@ -425,6 +448,66 @@ def test_run_cycles_geometry_gives_warps_several_pes_past_32(P):
     assert geom.threads <= 512 or P > 128
     assert geom.shared_bytes == 4 * _shared_words(geom, P, 128, 64)
     assert geom.shared_bytes <= MAX_SHARED_BYTES
+
+
+def _accepted_by_pe_run_cycles(geom, T, B, P, M, K=1):
+    """The checks ``pe_run_cycles`` (csrc/pe_array.cu) makes of a
+    geometry before it launches, restated."""
+    R, C = geom.rows_per_block, geom.chunk_rows
+    blocks_cover = (geom.blocks - 1) * R < B <= geom.blocks * R
+    if geom.layout == LANE_LAYOUT:
+        warps = geom.threads // 32
+        one_row = K == 1 and T == 1
+        return (0 < P <= 32 and geom.threads % 32 == 0
+                and 0 < warps <= LANE_WARPS and R == 32 // P * warps
+                and C == T and geom.memory_in_shared == (not one_row)
+                and blocks_cover
+                and geom.shared_bytes == (0 if one_row else 4 * R * M)
+                and geom.shared_bytes <= LANE_SHARED_BYTES
+                and geom.programs == K)
+    k = pes_per_warp(P)
+    return (geom.layout == UNIFORM_LAYOUT and 0 < P <= 256
+            and 0 < R <= 32 and R & (R - 1) == 0 and 0 < C <= T
+            and blocks_cover and geom.threads == 32 * -(-P // k)
+            and geom.shared_bytes == 4 * _shared_words(geom, P, M, T)
+            <= MAX_SHARED_BYTES and geom.programs == K)
+
+
+@pytest.mark.parametrize("B", [1, 37, 1000, 1024, 16384])
+@pytest.mark.parametrize("P", [1, 4, 16, 25, 32, 33, 64, 256])
+def test_one_row_geometry_is_one_pe_run_cycles_takes(P, B):
+    """``cycle_step``'s launch, one row (T = 1) and no trace: a geometry
+    the C entry accepts at every M, in the lane layout exactly where it
+    fits (at any B), else the uniform one, whose image stays in device
+    memory at M = 65,536; either layout forced, where it fits, is
+    accepted too."""
+    for M in (64, 128, 4096, 65_536):
+        geom = run_cycles_geometry(B, P, M, 1, 1)
+        assert _accepted_by_pe_run_cycles(geom, 1, B, P, M), (M, geom)
+        assert (geom.layout == LANE_LAYOUT) == lanes_fit(P, M), M
+        if M == 65_536:
+            assert geom.layout == UNIFORM_LAYOUT
+            assert not geom.memory_in_shared
+        uni = run_cycles_geometry(B, P, M, 1, 1, layout=UNIFORM_LAYOUT)
+        assert _accepted_by_pe_run_cycles(uni, 1, B, P, M), (M, uni)
+        if lanes_fit(P, M):
+            lane = run_cycles_geometry(B, P, M, 1, 1, layout=LANE_LAYOUT)
+            assert lane == geom
+
+
+@pytest.mark.parametrize("B,K,T,want", [
+    (1024, 1, 84, (8, 128, 128, 4096, 1, 84, 1, LANE_LAYOUT)),
+    (16384, 1, 84, (32, 512, 512, 77792, 1, 84, 1, UNIFORM_LAYOUT)),
+    (2048, 1, 112, (8, 128, 256, 4096, 1, 112, 1, LANE_LAYOUT)),
+    (2048, 15, 112, (32, 512, 64, 92240, 15, 112, 1, UNIFORM_LAYOUT)),
+    (4096, 1, 64, (32, 512, 128, 67472, 1, 64, 1, UNIFORM_LAYOUT))])
+def test_many_row_geometry_is_unchanged_by_the_one_row_rule(B, K, T, want):
+    """Launches of more than one row keep the geometry they had before
+    one-row launches went to the lane layout at any B (gsm, T = 84, at the
+    fuzz path's B = 1024 and at 16384; the K = 15 stack at B = 2048)."""
+    geom = run_cycles_geometry(B, 16, 128, K, T)
+    assert tuple(geom) == want
+    assert _accepted_by_pe_run_cycles(geom, T, B, 16, 128, K)
 
 
 @given(st.integers(0, 10_000))
