@@ -22,6 +22,7 @@ Counterpart of ``src/repro/fuzz/engine.py``:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from dataclasses import dataclass, field
@@ -40,6 +41,7 @@ from ..cgra.simulator import execute_asm, stacked_preset_state
 from ..device import resolve_device
 from ..kernels.ops import decode_fields, run_program
 from ..kernels.ref import InstrRow, PEState
+from ..obs import trace as obs_trace
 from .activity import ActivityAccumulator
 from .corpus import make_corpus
 
@@ -277,8 +279,11 @@ class FuzzReport:
     mismatches: List[str] = field(default_factory=list)  # capped sample
     error: Optional[str] = None
     map_time_s: float = 0.0
-    exec_time_s: float = 0.0
+    exec_time_s: float = 0.0         # fuzz.execute + fuzz.readback spans
     oracle_time_s: float = 0.0
+    readback_time_s: float = 0.0     # the part of exec_time_s after launch
+    compare_time_s: float = 0.0
+    activity_time_s: float = 0.0
     mem_rate: float = 0.0            # memories verified per second
     activity: Optional[Dict] = None
     energy: Optional[Dict] = None    # static vs empirical dynamic energy
@@ -296,6 +301,20 @@ class FuzzReport:
 _MISMATCH_SAMPLE_CAP = 8
 
 
+#: the phases of a :func:`fuzz_program` chunk, each a ``fuzz.<phase>``
+#: span and the source of one ``FuzzReport`` time
+_PHASES = ("execute", "readback", "oracle", "compare", "activity")
+
+
+@contextlib.contextmanager
+def _phase(times: Dict[str, float], phase: str, **attrs):
+    """A ``fuzz.<phase>`` span whose duration adds to ``times[phase]``."""
+    sp = obs_trace.timed_span(f"fuzz.{phase}", **attrs)
+    with sp:
+        yield sp
+    times[phase] += sp.dur
+
+
 def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
                  device="cuda", collect_activity: bool = True) -> FuzzReport:
     """Differentially fuzz one artifact over a corpus.
@@ -304,6 +323,14 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
     each chunk in one ``run_program``, runs the batched oracle on the same
     chunk, and compares under the ``verify`` contract.  Activity
     statistics are harvested from each chunk's trace on its device.
+
+    Every phase is a span (:mod:`repro_torch.obs.trace`) under
+    ``fuzz.program``, one ``fuzz.chunk`` a chunk: ``fuzz.execute``
+    (decode, preset and the launch's enqueue), ``fuzz.readback`` (the
+    wait on the device and the copies back), ``fuzz.oracle``,
+    ``fuzz.compare`` and ``fuzz.activity`` (also the accumulator's
+    set-up and its report).  The report's times are their projections:
+    ``exec_time_s`` is execute + readback.
     """
     dev = resolve_device(device)
     asm, program = artifact.asm, artifact.program
@@ -315,39 +342,53 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
                      status="ok", ii=asm.ii, memories=n,
                      batch=min(batch, n) if n else batch,
                      backend=_backend(dev))
-    acc = (ActivityAccumulator(asm, artifact.grid) if collect_activity
-           else None)
-    t_exec = t_oracle = 0.0
-    t_total0 = time.monotonic()
-    for lo in range(0, n, batch):
-        chunk = mems[lo:lo + batch]
-        t0 = time.monotonic()
-        final, outs, _ = execute_asm(asm, artifact.grid, chunk,
-                                     batch=chunk.shape[0], device=dev)
-        sim_vals = node_values_from_outs(asm, outs, program.trip)
-        sim_mem = final.mem.cpu().numpy()
-        t_exec += time.monotonic() - t0
-        t0 = time.monotonic()
-        oracle_vals, oracle_mem = batched_oracle(program, chunk)
-        t_oracle += time.monotonic() - t0
-        bad = compare_batch(sim_vals, sim_mem, oracle_vals, oracle_mem)
-        for i in np.nonzero(bad)[0]:
-            rep.failing.append(lo + int(i))
-            if len(rep.mismatches) < _MISMATCH_SAMPLE_CAP:
-                rep.mismatches.extend(mismatch_strings(
-                    program, sim_vals, sim_mem, oracle_vals, oracle_mem,
-                    int(i), label=lo + int(i))[:_MISMATCH_SAMPLE_CAP])
+    times = dict.fromkeys(_PHASES, 0.0)
+    root = obs_trace.timed_span("fuzz.program", kernel=artifact.kernel,
+                                memories=n, batch=rep.batch,
+                                chunks=-(-n // batch))
+    with root:
+        acc = None
+        if collect_activity:
+            with _phase(times, "activity", part="setup"):
+                acc = ActivityAccumulator(asm, artifact.grid)
+        for lo in range(0, n, batch):
+            chunk = mems[lo:lo + batch]
+            with obs_trace.timed_span("fuzz.chunk", lo=lo,
+                                      rows=chunk.shape[0]):
+                with _phase(times, "execute"):
+                    final, outs, _ = execute_asm(
+                        asm, artifact.grid, chunk, batch=chunk.shape[0],
+                        device=dev)
+                with _phase(times, "readback"):
+                    sim_vals = node_values_from_outs(asm, outs, program.trip)
+                    sim_mem = final.mem.cpu().numpy()
+                with _phase(times, "oracle"):
+                    oracle_vals, oracle_mem = batched_oracle(program, chunk)
+                with _phase(times, "compare"):
+                    bad = compare_batch(sim_vals, sim_mem, oracle_vals,
+                                        oracle_mem)
+                    for i in np.nonzero(bad)[0]:
+                        rep.failing.append(lo + int(i))
+                        if len(rep.mismatches) < _MISMATCH_SAMPLE_CAP:
+                            rep.mismatches.extend(mismatch_strings(
+                                program, sim_vals, sim_mem, oracle_vals,
+                                oracle_mem, int(i), label=lo + int(i)
+                            )[:_MISMATCH_SAMPLE_CAP])
+                if acc is not None:
+                    with _phase(times, "activity"):
+                        acc.update(outs)
         if acc is not None:
-            acc.update(outs)
-    wall = time.monotonic() - t_total0
-    rep.exec_time_s = round(t_exec, 4)
-    rep.oracle_time_s = round(t_oracle, 4)
-    rep.mem_rate = round(n / wall, 2) if wall > 0 and n else 0.0
+            with _phase(times, "activity", part="report"):
+                rep.activity = acc.report().to_dict()
+    rep.exec_time_s = round(times["execute"] + times["readback"], 4)
+    rep.readback_time_s = round(times["readback"], 4)
+    rep.oracle_time_s = round(times["oracle"], 4)
+    rep.compare_time_s = round(times["compare"], 4)
+    rep.activity_time_s = round(times["activity"], 4)
+    rep.mem_rate = round(n / root.dur, 2) if root.dur > 0 and n else 0.0
     rep.mismatches = rep.mismatches[:_MISMATCH_SAMPLE_CAP]
     if rep.failing:
         rep.status = "mismatch"
-    if acc is not None:
-        rep.activity = acc.report().to_dict()
     return rep
 
 
@@ -368,40 +409,55 @@ def fuzz_kernel(name: str, arch: str = "4x4", memories: int = 1024,
     comes back ``unmapped`` or ``timeout``; nothing else stands in for
     its mapping.  ``cache`` (a directory or a
     :class:`~repro_torch.dse.cache.MappingCache`) answers a repeat mapping
-    from disk, as ``Toolchain(cache=)`` does."""
-    from ..core.mapper import MapperConfig
-    from ..toolchain.session import Toolchain
-    from .triage import triage_failure
+    from disk, as ``Toolchain(cache=)`` does.
 
-    dev = resolve_device(device)
-    cfg = config or MapperConfig(per_ii_timeout_s=60.0,
-                                 total_timeout_s=120.0, ii_max=32)
-    tc = Toolchain(arch, cfg, cache=cache)
-    arch_name = tc.arch or f"{tc.grid.spec.rows}x{tc.grid.spec.cols}"
-    prog = tc.program(name)
-    t0 = time.monotonic()
-    try:
-        res = tc.map(prog)
-    except Exception as e:
-        return FuzzReport(kernel=name, arch=arch_name, status="error",
-                          backend=_backend(dev),
-                          error=f"{type(e).__name__}: {e}")
-    map_time = round(time.monotonic() - t0, 3)
-    if res.mapping is None:
-        status = "timeout" if res.status == "timeout" else "unmapped"
-        return FuzzReport(kernel=name, arch=arch_name, status=status,
-                          backend=_backend(dev), map_time_s=map_time)
-    artifact = Artifact.from_mapping(prog.builder, res.mapping,
-                                     arch=arch_name)
-    mems = make_corpus(name, memories, seed=seed, strategies=strategies)
-    rep = fuzz_program(artifact, mems, batch=batch, device=dev)
-    rep.map_time_s = map_time
-    if rep.activity is not None:
-        rep.energy = _energy_delta(artifact, rep.activity)
-    if rep.failing and shrink:
-        triage_failure(artifact, mems, rep, device=dev,
-                       out_dir=failures_dir)
-    return rep
+    The call is a ``fuzz.kernel`` span whose children are its stages:
+    ``fuzz.setup``, ``fuzz.map`` (``map_time_s`` is its duration),
+    ``fuzz.assemble``, ``fuzz.corpus``, ``fuzz.program``, ``fuzz.energy``
+    and, on a mismatch with ``shrink``, ``fuzz.triage``."""
+    with obs_trace.timed_span("fuzz.kernel", kernel=name, arch=arch):
+        with obs_trace.timed_span("fuzz.setup"):
+            from ..core.mapper import MapperConfig
+            from ..toolchain.session import Toolchain
+            from .triage import triage_failure
+
+            dev = resolve_device(device)
+            cfg = config or MapperConfig(per_ii_timeout_s=60.0,
+                                         total_timeout_s=120.0, ii_max=32)
+            tc = Toolchain(arch, cfg, cache=cache)
+            arch_name = (tc.arch
+                         or f"{tc.grid.spec.rows}x{tc.grid.spec.cols}")
+            prog = tc.program(name)
+        msp = obs_trace.timed_span("fuzz.map", kernel=name)
+        try:
+            with msp:
+                res = tc.map(prog)
+                msp.set(cache_hit=tc.last_cache_hit, status=res.status)
+        except Exception as e:
+            return FuzzReport(kernel=name, arch=arch_name, status="error",
+                              backend=_backend(dev),
+                              error=f"{type(e).__name__}: {e}")
+        map_time = round(msp.dur, 3)
+        if res.mapping is None:
+            status = "timeout" if res.status == "timeout" else "unmapped"
+            return FuzzReport(kernel=name, arch=arch_name, status=status,
+                              backend=_backend(dev), map_time_s=map_time)
+        with obs_trace.timed_span("fuzz.assemble"):
+            artifact = Artifact.from_mapping(prog.builder, res.mapping,
+                                             arch=arch_name)
+        with obs_trace.timed_span("fuzz.corpus", memories=memories):
+            mems = make_corpus(name, memories, seed=seed,
+                               strategies=strategies)
+        rep = fuzz_program(artifact, mems, batch=batch, device=dev)
+        rep.map_time_s = map_time
+        if rep.activity is not None:
+            with obs_trace.timed_span("fuzz.energy"):
+                rep.energy = _energy_delta(artifact, rep.activity)
+        if rep.failing and shrink:
+            with obs_trace.timed_span("fuzz.triage"):
+                triage_failure(artifact, mems, rep, device=dev,
+                               out_dir=failures_dir)
+        return rep
 
 
 def _energy_delta(artifact: Artifact, activity: Dict) -> Dict:

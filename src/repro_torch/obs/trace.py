@@ -30,6 +30,14 @@ Record schema (``SCHEMA_VERSION == 1``)::
 ``ts`` is ``time.time()`` so shards from different processes align on a
 shared clock; ``dur`` is measured with ``time.monotonic()``.
 
+While a ``torch.profiler`` records in this process, a span entered with
+``with`` (a :class:`Span`, or the :func:`timed_span` timer) also enters a
+``record_function`` range of its own name, so the profiler's host events
+carry the program's phases; ``ts`` is on the profiler's clock (Unix
+epoch), so shards line up with an exported profiler trace.  Without a
+profiler the cost is one check per span, and this module never imports
+torch itself.
+
 A copy of ``src/repro/obs/trace.py`` (the port imports nothing of the JAX
 package).
 """
@@ -38,6 +46,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 from contextvars import ContextVar
@@ -129,6 +138,17 @@ def _write(record: Dict[str, Any]) -> None:
         _sink.flush()
 
 
+def _profiler_range(name: str):
+    """A ``record_function`` range of ``name``, entered, while a torch
+    profiler records in this process; otherwise None."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch._C._autograd._profiler_enabled():
+        return None
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 class Span:
     """A live span. Use as a context manager, or ``begin()``/``finish()``."""
 
@@ -143,6 +163,7 @@ class Span:
         "dur",
         "_token",
         "_done",
+        "_range",
     )
 
     def __init__(
@@ -169,6 +190,7 @@ class Span:
         self.dur = 0.0
         self._token = None
         self._done = False
+        self._range = None
 
     def set(self, **attrs: Any) -> "Span":
         """Attach attributes; must happen before the span finishes."""
@@ -222,9 +244,13 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._token = _current.set(self)
+        self._range = _profiler_range(self.name)
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
         if self._token is not None:
             _current.reset(self._token)
             self._token = None
@@ -268,13 +294,16 @@ NULL_SPAN = _NullSpan()
 
 class _Timer:
     """Duration-only span substitute used by :func:`timed_span` when
-    tracing is off — measures ``dur`` but never touches the sink."""
+    tracing is off — measures ``dur`` but never touches the sink (a
+    profiler, while one records, still sees its range)."""
 
-    __slots__ = ("t0", "dur")
+    __slots__ = ("name", "t0", "dur", "_range")
 
-    def __init__(self) -> None:
+    def __init__(self, name: str) -> None:
+        self.name = name
         self.t0 = 0.0
         self.dur = 0.0
+        self._range = None
 
     def set(self, **attrs: Any) -> "_Timer":
         return self
@@ -292,9 +321,13 @@ class _Timer:
 
     def __enter__(self) -> "_Timer":
         self.t0 = time.monotonic()
+        self._range = _profiler_range(self.name)
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
         self.dur = time.monotonic() - self.t0
         return False
 
@@ -319,7 +352,7 @@ def timed_span(name: str, **attrs: Any):
     duration-only timer instead of the no-op singleton. The toolchain's
     stage timing (``CompileResult.timings``) is a projection of these."""
     if not _enabled:
-        return _Timer()
+        return _Timer(name)
     return Span(name, attrs)
 
 

@@ -108,9 +108,10 @@ def test_injected_fault_reports_match_jax():
 
 
 #: digest fields that differ by design: the backend name and wall-clock
-#: timings
+#: timings (the port's phase timings have no JAX counterpart)
 _VARIES = ("backend", "map_time_s", "exec_time_s", "oracle_time_s",
-           "mem_rate")
+           "mem_rate", "readback_time_s", "compare_time_s",
+           "activity_time_s")
 
 
 def _comparable(doc):
@@ -193,5 +194,7 @@ def test_fuzz_kernel_reports_an_unmapped_kernel_as_jax_does():
     want = jax_engine.fuzz_kernel("sha", "2x2", config=JaxConfig(ii_max=4))
     got, want = rep.to_dict(), want.to_dict()
     assert got.pop("map_time_s") < 1.0 and want.pop("map_time_s") < 1.0
+    for key in ("readback_time_s", "compare_time_s", "activity_time_s"):
+        assert got.pop(key) == 0.0 and key not in want
     assert got == want
     assert rep.status == "unmapped"

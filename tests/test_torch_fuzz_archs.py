@@ -26,7 +26,7 @@ CASES = [("mesh-4x4", ("gsm", "saxpy", "relu_clamp", "xorshift32")),
          ("bordermem-4x4", ("gsm", "saxpy", "relu_clamp", "xorshift32")),
          ("adres-4x4", ("bitcount", "saxpy", "xorshift32", "dotprod"))]
 _TIMES = ("map_time_s", "exec_time_s", "oracle_time_s", "mem_rate",
-          "backend")
+          "backend", "readback_time_s", "compare_time_s", "activity_time_s")
 
 
 @pytest.mark.parametrize("arch,kernels", CASES, ids=[a for a, _ in CASES])
