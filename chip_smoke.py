@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the PE-array kernels (the whole-program run in two layouts, whose
-one-row launch is the cycle step) from ``src/repro_torch/kernels/csrc``
-with nvcc, then, printing one JSON object per line:
+one-row launch is the cycle step) and the fuzz oracle's kernel from
+``src/repro_torch/kernels/csrc`` with nvcc, then, printing one JSON object
+per line:
 
 1. the card (nvidia-smi name and power limit, torch and CUDA versions);
 2. the build and its time;
@@ -55,8 +56,8 @@ with nvcc, then, printing one JSON object per line:
    cache (its time to a verdict includes the mapping), 2048 memories in
    batches of 1024, every verdict ``ok`` and equal to the status of the
    same kernel in ``results/BENCH_fuzz.json``; the whole-program kernel
-   must launch once per batch chunk, in the lane layout, and the cycle
-   step never;
+   must launch once per batch chunk, in the lane layout, the oracle
+   kernel once per chunk, and the cycle step never;
    b. the stacked main path: ``fuzz_stacked`` on the 15 4x4 artifacts x
       2048 seed-0 memories, one launch in the uniform layout, every
       verdict ``ok`` and its
@@ -72,9 +73,15 @@ with nvcc, then, printing one JSON object per line:
    e. the main path again through its cache: 16 hits, each artifact
       equal to the cold pass's, status, failing memories, activity and
       energy equal; cold and warm seconds and their mapping seconds;
-5. a stream: gsm over 65,536 memories in batches of 16,384, and one
+5. a stream: gsm over 65,536 memories in batches of 16,384 (one
+   whole-program launch and one oracle launch a chunk), and one
    main-path run of gsm under ``torch.profiler`` (device busy and idle
-   share, the kernel's device time per launch);
+   share, the kernel's device time per launch); then the oracle phase:
+   the oracle kernel on every shipped artifact at B in {1024, 16384}
+   against its plain version on the card and the numpy oracle, node
+   values and images bit-equal, and on gsm its device time per launch,
+   the whole call at the host's pace, its plain version, the numpy
+   oracle and its bound;
 6. times at B in {1024, 16384}: the cycle step per launch on a random row
    (P=16, M=128), and the whole-program run on gsm's program (T=84), each
    as device time under ``torch.profiler`` and at the host's issue pace
@@ -137,7 +144,9 @@ with nvcc, then, printing one JSON object per line:
       mapped fuzzed on the card from its cache (every map a hit), ``ok``;
 9. the kernels line (the whole-program run's launches summed over the
    paths that run it, and given per path and, where counted, per layout;
-   each layout must have run on the main path), then the device line
+   each layout must have run on the main path; the oracle's launches per
+   path, one for each fuzz chunk on the card, and its largest difference
+   from its plain version and the numpy oracle), then the device line
    last.
 
 Any failure raises and exits non-zero.  Without CUDA it exits 1 and
@@ -182,6 +191,9 @@ MAIN_MEMORIES, MAIN_BATCH = 2048, 1024
 #: run_cycles launches by layout in the phases that count them (the fuzz
 #: main path, cold and warm, the sweep's fuzz runs and the stacked path)
 LAYOUT_LAUNCHES = {}
+#: oracle kernel launches by path: the fuzz main path, cold and warm, the
+#: stream and the oracle phase count their own, main() the others
+ORACLE_LAUNCHES = {}
 #: ``Geometry.layout`` by name: run_cycles_kernel, run_lanes_kernel
 LAYOUT_NAMES = ("uniform", "lane")
 STACK_ARCH = "4x4"                 # the stacked rung of BENCH_fuzz.json
@@ -198,6 +210,10 @@ UNMAPPED = (("sha", 4), ("sha2", 32))
 FAILURES_DIR = ROOT / "build" / "chip_smoke_failures"
 COSIM_SEEDS = 16                   # python -m repro_torch cosim's default
 STREAM_MEMORIES, STREAM_BATCH = 65536, 16384
+#: int32 operations of the oracle a node, iteration and memory: two
+#: operand selects, the op, the address add and its two compares, the
+#: flag test, the value's store (csrc/oracle.cu)
+ORACLE_OPS_PER_NODE = 8
 TIMED_BATCHES = (1024, 16384)
 TIMED_P, TIMED_M = 16, 128
 #: fresh mapping caches of the main path and the fleet (under build/,
@@ -874,8 +890,10 @@ def main_path(artifacts, device, cache, warm=False):
     """Phase 4: the fuzz path on every shipped kernel, each mapped live
     into ``cache`` (a fresh directory), or, with ``warm``, answered from
     it.  Returns the launches of (cycle_step, run_cycles) over the run,
-    the reports and the artifacts ``fuzz_kernel`` built."""
+    the reports and the artifacts ``fuzz_kernel`` built; the oracle
+    kernel's launches go to ``ORACLE_LAUNCHES``, one a chunk."""
     from repro_torch.fuzz.engine import fuzz_kernel
+    from repro_torch.kernels.oracle import oracle
     from repro_torch.kernels.pe_array import cycle_step, run_cycles
 
     bench = json.loads((ROOT / "results" / "BENCH_fuzz.json").read_text())
@@ -885,16 +903,17 @@ def main_path(artifacts, device, cache, warm=False):
     phase = "main_path_warm" if warm else "main_path"
     t0 = time.monotonic()
     with recorded_artifacts() as made:
-        cycle_step.launches = run_cycles.launches = 0
+        cycle_step.launches = run_cycles.launches = oracle.launches = 0
         run_cycles.lane_launches = 0
         reports = [fuzz_kernel(a.kernel, a.arch, memories=MAIN_MEMORIES,
                                batch=MAIN_BATCH, seed=0, config=map_config(),
                                cache=cache, device=device)
                    for a in artifacts]
         steps, runs = cycle_step.launches, run_cycles.launches
-        lanes = run_cycles.lane_launches
+        lanes, oracles = run_cycles.lane_launches, oracle.launches
     wall = time.monotonic() - t0
     LAYOUT_LAUNCHES[phase] = {"lane": lanes, "uniform": runs - lanes}
+    ORACLE_LAUNCHES[phase] = oracles
     for rep in reports:
         emit({"phase": "fuzz_warm" if warm else "fuzz", "kernel": rep.kernel,
               "arch": rep.arch,
@@ -911,6 +930,9 @@ def main_path(artifacts, device, cache, warm=False):
     check(runs == len(artifacts) * chunks,
           f"run_cycles launched {runs} times, not once for each of "
           f"{len(artifacts) * chunks} batch chunks")
+    check(oracles == len(artifacts) * chunks,
+          f"{phase}: the oracle launched {oracles} times, not once for "
+          f"each of {len(artifacts) * chunks} batch chunks")
     check(steps == 0, f"cycle_step launched {steps} times on the main path")
     check(lanes == runs, f"{phase}: {runs - lanes} of {runs} launches at "
                          f"B={MAIN_BATCH} left the lane layout")
@@ -919,6 +941,7 @@ def main_path(artifacts, device, cache, warm=False):
     emit({"phase": phase, "kernels": len(reports),
           "memories_each": MAIN_MEMORIES, "batch": MAIN_BATCH,
           "run_cycles_launches": runs, "cycle_step_launches": steps,
+          "oracle_launches": oracles,
           "layout_launches": LAYOUT_LAUNCHES[phase],
           "rows_run": rows_run, "cache": cache.stats(),
           "cache_entries": len(cache),
@@ -1935,9 +1958,10 @@ def triage_phase(device) -> None:
 def stream_phase(device) -> None:
     """Phase 5: one kernel over a large corpus in large batches."""
     from repro_torch.fuzz.engine import fuzz_kernel
+    from repro_torch.kernels.oracle import oracle
     from repro_torch.kernels.pe_array import run_cycles
 
-    run_cycles.launches = 0
+    run_cycles.launches = oracle.launches = 0
     rep = fuzz_kernel("gsm", "4x4", memories=STREAM_MEMORIES,
                       batch=STREAM_BATCH, seed=1, config=map_config(),
                       device=device)
@@ -1947,9 +1971,14 @@ def stream_phase(device) -> None:
     check(run_cycles.launches == chunks,
           f"stream: run_cycles launched {run_cycles.launches} times, "
           f"not {chunks}")
+    check(oracle.launches == chunks,
+          f"stream: the oracle launched {oracle.launches} times, not "
+          f"{chunks}")
+    ORACLE_LAUNCHES["stream"] = oracle.launches
     emit({"phase": "stream", "kernel": "gsm", "arch": "4x4",
           "memories": rep.memories, "batch": rep.batch,
           "run_cycles_launches": run_cycles.launches,
+          "oracle_launches": oracle.launches,
           "mem_rate": rep.mem_rate, "exec_time_s": rep.exec_time_s,
           "oracle_time_s": rep.oracle_time_s})
 
@@ -2021,6 +2050,110 @@ def profile_phase(device) -> None:
           "run_cycles_kernel_device_us_per_launch": fused_us / launches,
           "top": [(e.key[:80], e.count, device_us(e)) for e in sorted(
               events, key=device_us, reverse=True)[:6]]})
+
+
+@contextlib.contextmanager
+def oracle_launches(path: str):
+    """Counts the oracle kernel's launches in the block into
+    ``ORACLE_LAUNCHES[path]``."""
+    from repro_torch.kernels.oracle import oracle
+
+    before = oracle.launches
+    yield
+    ORACLE_LAUNCHES[path] = oracle.launches - before
+
+
+def oracle_phase(device, artifacts) -> dict:
+    """Phase 5c: the oracle kernel against its plain version on the card
+    and the numpy oracle on every shipped artifact at ``TIMED_BATCHES``,
+    bit-equal; then on gsm, per B, its device time per launch under
+    ``torch.profiler`` (the kernel alone, and every device op of a call
+    on a chunk already on the card: the error word's set, the launch, the
+    copy back), the whole call at the host's pace, the plain version on the
+    card, the numpy oracle on the host and the bound.  Returns the
+    largest absolute difference of those comparisons and {B: times}."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.fuzz.engine import batched_oracle
+    from repro_torch.kernels.oracle import oracle, oracle_ref
+    from repro_torch.kernels.sample import tiled_corpus
+
+    def diff(a, b, what) -> int:
+        """The largest |a - b| over node values and images; checks that
+        the node sets agree."""
+        (av, am), (bv, bm) = a, b
+        check(list(av) == list(bv), f"{what}: node sets differ")
+        err = int(np.abs(am - bm).max(initial=0))
+        for n in bv:
+            err = max(err, int(np.abs(
+                av[n] - np.broadcast_to(bv[n], av[n].shape)).max(initial=0)))
+        return err
+
+    oracle.launches = max_err = 0
+    for art in artifacts:
+        for B in TIMED_BATCHES:
+            mems = tiled_corpus(art, B)
+            got = oracle(art.oracle_table, torch.as_tensor(mems,
+                                                          device=device))
+            what = f"oracle {art.arch}/{art.kernel} B={B}"
+            err = max(diff(got, oracle_ref(art.oracle_table, torch.as_tensor(
+                mems, device=device)), what + " vs plain"),
+                diff(got, batched_oracle(art.program, mems),
+                     what + " vs numpy"))
+            check(err == 0, f"{what}: off by up to {err}")
+            max_err = max(max_err, err)
+    launches = oracle.launches
+    check(launches == len(artifacts) * len(TIMED_BATCHES),
+          f"oracle phase: {launches} launches")
+    ORACLE_LAUNCHES["oracle phase"] = launches
+
+    art = next(a for a in artifacts if a.kernel == "gsm")
+    table = art.oracle_table
+    N, trip = len(table.node_ids), table.trip
+    times = {}
+    for B in TIMED_BATCHES:
+        mems = tiled_corpus(art, B)
+        dev_mems = torch.as_tensor(mems, device=device)
+        M = mems.shape[1]
+
+        def call():
+            oracle(table, dev_mems)
+
+        for _ in range(3):
+            call()
+        calls = 20
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        events = on_device(prof)
+        kernel_us = sum(device_us(e) for e in events
+                        if "oracle_kernel" in e.key) / calls
+        busy_us = sum(device_us(e) for e in events) / calls
+        check(kernel_us > 0, "the profiler saw no oracle_kernel")
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        paced_ms = (time.perf_counter() - t0) * 1e3 / calls
+        t0 = time.perf_counter()
+        oracle_ref(table, dev_mems)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for _ in range(3):
+            batched_oracle(art.program, mems)
+        numpy_ms = (time.perf_counter() - t0) * 1e3 / 3
+        bytes_ = 4 * B * M + 8 * B * M + 8 * N * B + 4 * table.packed().size
+        ops = ORACLE_OPS_PER_NODE * N * trip * B
+        bound_ms, bound_by = bound(bytes_, ops)
+        times[B] = {"device_us": kernel_us, "call_device_us": busy_us,
+                    "host_paced_ms": paced_ms, "plain_ms": plain_ms,
+                    "numpy_ms": numpy_ms, "bound_us": bound_ms * 1e3,
+                    "bound_by": bound_by, "bytes": bytes_, "ops": ops}
+        emit({"phase": "oracle_timing", "kernel": "gsm", "batch": B,
+              "nodes": N, "trip": trip, **times[B]})
+    return max_err, times
 
 
 def host_paced_ms(fn, calls: int, reps: int) -> float:
@@ -2438,9 +2571,14 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     built = build.build()
     build.library()
+    oracle_built = build.build(build.ORACLE_SOURCE)
+    build.oracle_library()
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
-          "nvcc_seconds": round(built.seconds, 3), "library": built.path.name,
-          "ptxas": [ln for ln in built.log.splitlines() if "ptxas" in ln]})
+          "nvcc_seconds": round(built.seconds + oracle_built.seconds, 3),
+          "library": built.path.name,
+          "oracle_library": oracle_built.path.name,
+          "ptxas": [ln for b in (built, oracle_built)
+                    for ln in b.log.splitlines() if "ptxas" in ln]})
 
     artifacts = [load_artifact(arch, name) for arch in ("4x4", "3x3")
                  for name in artifact_names(arch)]
@@ -2451,36 +2589,57 @@ def main(argv=None) -> int:
                     run_cycles_vs_plain(device))
     stacked_err = stacked_vs_plain(device)
     seq_seconds = map_phase(artifacts, device)
-    cosim_runs = cosim_phase(device)
+    with oracle_launches("cosim"):
+        cosim_runs = cosim_phase(device)
     cache = fresh_cache("main_path")
     t0 = time.monotonic()
     steps, runs, reports, made = main_path(artifacts, device, cache)
     warm_runs = main_path_warm(artifacts, device, cache, reports, made,
                                time.monotonic() - t0)
-    stacked_runs = stacked_main_path(artifacts, reports, device)
+    with oracle_launches("stacked main path"):
+        stacked_runs = stacked_main_path(artifacts, reports, device)
     activity_phase(reports)
     activity_cost(artifacts, device)
-    triage_phase(device)
+    with oracle_launches("triage"):
+        triage_phase(device)
     stream_phase(device)
     profile_phase(device)
+    oracle_err, oracle_times = oracle_phase(device, artifacts)
     parent = parent_kernels(args.parent)
     step_times = timing(device, parent)
     fused_times = program_timing(device, step_times, parent)
     stacked_times = stacked_timing(device, artifacts, parent)
-    fleet_rows, fleet_runs = fleet_phase(artifacts, device)
-    race_runs = race_phase(device, seq_seconds)
+    with oracle_launches("fleet"):
+        fleet_rows, fleet_runs = fleet_phase(artifacts, device)
+    with oracle_launches("race"):
+        race_runs = race_phase(device, seq_seconds)
     fleet_chaos_phase(fleet_rows)
     sweep_smoke_phase()
-    sweep_rows, sweep_runs, sweep_err, trace_dir = sweep_phase(device)
-    heuristic_runs = heuristic_phase(device, sweep_rows)
+    with oracle_launches("sweep"):
+        sweep_rows, sweep_runs, sweep_err, trace_dir = sweep_phase(device)
+    with oracle_launches("heuristic"):
+        heuristic_runs = heuristic_phase(device, sweep_rows)
     trace_phase(trace_dir)
-    serve_runs = serve_phase(device)
+    with oracle_launches("serve"):
+        serve_runs = serve_phase(device)
     fused_err = max(fused_err, sweep_err)
+    # every run_cycles launch of these paths is a fuzz chunk on the card,
+    # and each such chunk takes one oracle launch; triage fuzzes its two
+    # chunks on the card (its shrinking keeps the numpy oracle), the
+    # stacked path keeps the numpy oracle, and cosim runs none
+    chunks = -(-MAIN_MEMORIES // MAIN_BATCH)
+    for path, want in (("fleet", fleet_runs), ("race", race_runs),
+                       ("heuristic", heuristic_runs), ("serve", serve_runs),
+                       ("triage", chunks), ("cosim", 0),
+                       ("stacked main path", 0)):
+        check(ORACLE_LAUNCHES[path] == want,
+              f"{path}: the oracle kernel launched {ORACLE_LAUNCHES[path]} "
+              f"times, not {want}")
 
     def line(name, launches, err, ms, plain_ms, bound_ms, bound_by="bytes",
-             replaces="src/repro/kernels/pe_array.py:67", **extra):
-        return {"name": name, "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/pe_array.cu",
+             replaces="src/repro/kernels/pe_array.py:67",
+             source="src/repro_torch/kernels/csrc/pe_array.cu", **extra):
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2488,6 +2647,7 @@ def main(argv=None) -> int:
 
     step_ms, _, step_plain_ms, step_bound_ms, step_bound_by = \
         step_times[MAIN_BATCH]
+    at_main = oracle_times[MAIN_BATCH]
     for name in LAYOUT_NAMES:
         check(sum(n[name] for n in LAYOUT_LAUNCHES.values()) > 0,
               f"the {name} layout of run_cycles was launched no time on "
@@ -2512,7 +2672,13 @@ def main(argv=None) -> int:
         line("pe_array.run_cycles (stacked)", stacked_runs,
              max(stacked_err, stacked_times[0]), *stacked_times[1:],
              replaces="src/repro/fuzz/engine.py:508",
-             launches_by_layout=LAYOUT_LAUNCHES["stacked_main_path"])]})
+             launches_by_layout=LAYOUT_LAUNCHES["stacked_main_path"]),
+        line("oracle.oracle", sum(ORACLE_LAUNCHES.values()), oracle_err,
+             at_main["device_us"] / 1e3, at_main["plain_ms"],
+             at_main["bound_us"] / 1e3, at_main["bound_by"], replaces=None,
+             source="src/repro_torch/kernels/csrc/oracle.cu",
+             launches_by_path=dict(ORACLE_LAUNCHES),
+             times={str(b): t for b, t in oracle_times.items()})]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

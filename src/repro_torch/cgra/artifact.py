@@ -11,6 +11,7 @@ files are what the port's mapper reproduces key for key
 """
 from __future__ import annotations
 
+import functools
 import json
 from dataclasses import dataclass
 from pathlib import Path
@@ -71,6 +72,15 @@ class Artifact:
                    asm=asm, program=LoopBuilder.from_dict(doc["program"]),
                    regions=tuple(tuple(r) for r in doc["regions"]),
                    wide_product=bool(doc["wide_product"]))
+
+    @functools.cached_property
+    def oracle_table(self):
+        """The program compiled for the oracle kernel
+        (:func:`repro_torch.kernels.oracle.compile_oracle`), once an
+        artifact."""
+        from ..kernels.oracle import compile_oracle
+
+        return compile_oracle(self.program)
 
     def to_dict(self) -> Dict:
         """Inverse of :meth:`from_dict`, keys in the shipped files' order."""

@@ -8,7 +8,8 @@ Counterpart of ``src/repro/fuzz/engine.py``:
 * :func:`fuzz_program` chunks a corpus through
   :func:`repro_torch.cgra.simulator.execute_asm` (the PE array's batch
   axis, on the card by default), compares every last-iteration node value
-  and the final memory image against the batched oracle, reports
+  and the final memory image against the batched oracle (on the card the
+  oracle kernel of :mod:`repro_torch.kernels.oracle`), reports
   per-memory verdicts with the comparison contract of ``verify``, and
   harvests switching activity from each chunk's trace on its device.
 * :func:`fuzz_kernel` maps a registry kernel through the port's
@@ -39,6 +40,7 @@ from ..cgra.isa import FXP_FRAC_BITS, NOP
 from ..cgra.programs import LoopBuilder, Val
 from ..cgra.simulator import execute_asm, stacked_preset_state
 from ..device import resolve_device
+from ..kernels.oracle import oracle
 from ..kernels.ops import decode_fields, run_program
 from ..kernels.ref import InstrRow, PEState
 from ..obs import trace as obs_trace
@@ -193,6 +195,12 @@ def batched_oracle_iterations(
 # ---------------------------------------------------------------------------
 
 
+#: int64 words of the final images that :func:`compare_batch` masks at a
+#: time (1 MB): a whole batch's masks (16 MB each at 16,384 x 128) went
+#: back to the OS when freed and were faulted in again every chunk
+COMPARE_WORDS = 1 << 17
+
+
 def compare_batch(
     sim_node_values: Dict[int, np.ndarray],
     sim_final_mem: np.ndarray,
@@ -200,15 +208,19 @@ def compare_batch(
     oracle_mem: np.ndarray,
 ) -> np.ndarray:
     """Per-memory failure mask (B,) over every last-iteration node value
-    and the full final memory."""
-    bad = np.zeros(sim_final_mem.shape[0], bool)
+    and the full final memory, the images in blocks of rows."""
+    B, M = sim_final_mem.shape
+    bad = np.zeros(B, bool)
     for n, vals in sim_node_values.items():
         exp = oracle_vals.get(n)
         if exp is None:
             continue
         bad |= (np.asarray(vals, np.int64) & M32) != (exp & M32)
-    bad |= ((np.asarray(sim_final_mem, np.int64) & M32)
-            != (oracle_mem & M32)).any(axis=1)
+    rows = max(1, COMPARE_WORDS // max(M, 1))
+    for lo in range(0, B, rows):
+        part = slice(lo, lo + rows)
+        bad[part] |= ((np.asarray(sim_final_mem[part], np.int64) & M32)
+                      != (oracle_mem[part] & M32)).any(axis=1)
     return bad
 
 
@@ -324,13 +336,20 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
     chunk, and compares under the ``verify`` contract.  Activity
     statistics are harvested from each chunk's trace on its device.
 
+    On the card the oracle is one launch of the oracle kernel over the
+    artifact's compiled table (``Artifact.oracle_table``), on its own
+    device copy of the chunk from the host array; on the CPU it is
+    :func:`batched_oracle`.
+
     Every phase is a span (:mod:`repro_torch.obs.trace`) under
     ``fuzz.program``, one ``fuzz.chunk`` a chunk: ``fuzz.execute``
     (decode, preset and the launch's enqueue), ``fuzz.readback`` (the
-    wait on the device and the copies back), ``fuzz.oracle``,
-    ``fuzz.compare`` and ``fuzz.activity`` (also the accumulator's
-    set-up and its report).  The report's times are their projections:
-    ``exec_time_s`` is execute + readback.
+    wait on the device and the copies back), ``fuzz.oracle`` (attribute
+    ``backend``, ``cuda`` or ``numpy``; on the card the chunk's copy in,
+    the launch, the wait and the copy back), ``fuzz.compare`` and
+    ``fuzz.activity`` (also the accumulator's set-up and its report).
+    The report's times are their projections: ``exec_time_s`` is execute
+    + readback.
     """
     dev = resolve_device(device)
     asm, program = artifact.asm, artifact.program
@@ -343,6 +362,7 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
                      batch=min(batch, n) if n else batch,
                      backend=_backend(dev))
     times = dict.fromkeys(_PHASES, 0.0)
+    oracle_backend = "cuda" if dev.type == "cuda" else "numpy"
     root = obs_trace.timed_span("fuzz.program", kernel=artifact.kernel,
                                 memories=n, batch=rep.batch,
                                 chunks=-(-n // batch))
@@ -362,8 +382,15 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
                 with _phase(times, "readback"):
                     sim_vals = node_values_from_outs(asm, outs, program.trip)
                     sim_mem = final.mem.cpu().numpy()
-                with _phase(times, "oracle"):
-                    oracle_vals, oracle_mem = batched_oracle(program, chunk)
+                with _phase(times, "oracle", backend=oracle_backend):
+                    if dev.type == "cuda":
+                        oracle_vals, oracle_mem = oracle(
+                            artifact.oracle_table,
+                            torch.as_tensor(np.ascontiguousarray(chunk),
+                                            device=dev))
+                    else:
+                        oracle_vals, oracle_mem = batched_oracle(program,
+                                                                 chunk)
                 with _phase(times, "compare"):
                     bad = compare_batch(sim_vals, sim_mem, oracle_vals,
                                         oracle_mem)

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc at first use and bind them with
 ctypes.
 
-The source is compiled into a shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds), cached under
-``build/repro_torch_kernels/`` at the repository root and keyed by the hash
-of the source and the flags.  A failed build raises; there is no fallback.
+Each source under ``csrc/`` (``pe_array.cu``, the PE array; ``oracle.cu``,
+the fuzz oracle) is compiled on its own into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), cached
+under ``build/repro_torch_kernels/`` at the repository root and keyed by
+the hash of the source and the flags.  A failed build raises; there is no
+fallback.
 """
 from __future__ import annotations
 
@@ -18,7 +20,9 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "pe_array.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "pe_array.cu"
+ORACLE_SOURCE = CSRC / "oracle.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,32 +49,42 @@ def nvcc() -> str:
     return found
 
 
-def build() -> Build:
-    """Compile ``SOURCE`` unless a library of the same hash is cached."""
-    src = SOURCE.read_bytes()
+def build(source: Path = SOURCE) -> Build:
+    """Compile ``source`` unless a library of the same hash is cached."""
+    src = source.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"pe_array-{digest[:16]}.so"
+    lib = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
     if lib.is_file():
         return Build(lib, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
     t0 = time.monotonic()
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
     seconds = time.monotonic() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{log}")
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:\n{log}")
     os.replace(tmp, lib)
     return Build(lib, seconds, log)
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library with its C entry point typed."""
+    """The loaded PE-array library with its C entry point typed."""
     lib = ctypes.CDLL(str(build().path))
     lib.pe_run_cycles.argtypes = ([ctypes.c_void_p] * 17
                                   + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     lib.pe_run_cycles.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def oracle_library() -> ctypes.CDLL:
+    """The loaded oracle library with its C entry point typed."""
+    lib = ctypes.CDLL(str(build(ORACLE_SOURCE).path))
+    lib.oracle_run.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                               + [ctypes.c_void_p])
+    lib.oracle_run.restype = ctypes.c_int
     return lib

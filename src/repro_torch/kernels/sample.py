@@ -1,6 +1,7 @@
 """Seeded random instruction rows and PE-array states for holding the
 PE-array kernels against their plain versions (tests and ``chip_smoke.py``),
-and hazard programs aimed at the row scheme of ``run_cycles_kernel``.
+hazard programs aimed at the row scheme of ``run_cycles_kernel``, and CIL
+programs and memories for holding the oracle kernel to its plain version.
 
 Programs are collision-free: two stores to one address in one cycle are
 undefined behaviour, so a row holds either SWI stores to distinct
@@ -156,3 +157,122 @@ def hazard_fields(rng: np.random.RandomState, kind: str, T: int, P: int,
             row = t if t % 2 else t - 1
             _memory_cell(f, t, q, "LWI", (row * n + i % n) % M, rng)
     return f
+
+
+# ---------------------------------------------------------------------------
+# programs for the oracle kernel (kernels/oracle.py)
+# ---------------------------------------------------------------------------
+
+#: programs of :func:`out_of_range_program`
+OUT_OF_RANGE = ("lwd", "lwi", "swd", "swi", "negative")
+_INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def oracle_edges(builder, trip: int = 5):
+    """A CIL program that reaches what no shipped kernel may: every op
+    class on data-dependent operands, FXPMUL of full-range words (products
+    past 2^47), shifts by loaded amounts (past 31 and negative) and by
+    constants 33 / -1 / 40, SRT of negative words, BSFA / BZFA on zero and
+    negative producers, absent operands, integer constants, two carries on
+    one update node, loads and stores by carry and by immediate.  Its
+    addresses stay in [0, 32) for ``trip`` up to 8.  ``builder`` is a
+    ``LoopBuilder`` class (of either package)."""
+    p = builder("oracle_edges", trip)
+    i = p.carry("i", 0)
+    acc = p.carry("acc", -7)
+    twin = p.carry("twin", 3)                 # shares acc's update node
+    p.set_carry(i, p.op("SADD", i, 1))
+    x = p.op("LWD", i)                        # mem[i]
+    y = p.op("LWI", None, None, imm=8)        # mem[8]
+    z = p.op("LWI", i, None, imm=9)           # mem[i + 9]
+    vals = [p.op(op, x, y) for op in (
+        "SADD", "SSUB", "SMUL", "FXPMUL", "SLT", "SRT", "SRA", "LAND", "LOR",
+        "LXOR", "LNAND", "LNOR", "LXNOR", "BEQ", "BNE", "BLT", "BGE")]
+    vals += [p.op("SLT", z, 33), p.op("SRT", z, -1), p.op("SRA", z, 40),
+             p.op("FXPMUL", z, z), p.op("SRT", x, z), p.op("MOV", acc),
+             p.op("SADD", None, None, imm=-5), p.op("SSUB", None, x, imm=11),
+             p.op("JUMP"), p.op("EXIT"), p.op("NOP")]
+    same = p.op("SSUB", x, x)                 # zero every time
+    vals += [p.op("BZFA", x, y, flag=same), p.op("BSFA", x, y, flag=same),
+             p.op("BSFA", y, z, flag=x),
+             p.op("BZFA", None, z, imm=17, flag=z)]
+    total = vals[0]
+    for v in vals[1:]:
+        total = p.op("LXOR", total, v)
+    mixed = p.op("SADD", total, acc)
+    p.set_carry(acc, mixed)
+    p.set_carry(twin, mixed)
+    p.op("SWD", i, mixed)                     # mem[i] = mixed
+    p.op("SWI", None, twin, imm=20)           # mem[20] = twin
+    p.op("SWI", i, vals[3], imm=24)           # mem[i + 24] = FXPMUL
+    return p
+
+
+def oracle_edge_mems(B: int = 64, M: int = 32, seed: int = 0) -> np.ndarray:
+    """(B, M) int32 memories for :func:`oracle_edges`: full-range words,
+    a third of them drawn from the edges (0, -1, INT32_MIN, INT32_MAX,
+    shift amounts around 32, ...), and every fourth memory zero in its
+    first 16 words."""
+    rng = np.random.default_rng(seed)
+    mems = rng.integers(_INT32_MIN, _INT32_MAX + 1, (B, M), dtype=np.int64)
+    special = np.array([0, -1, 1, _INT32_MIN, _INT32_MAX, 1 << 16,
+                        -(1 << 16), 31, 32, 33, -32, 65535], np.int64)
+    pick = rng.random((B, M)) < 0.3
+    mems[pick] = rng.choice(special, pick.sum())
+    mems[::4, :16] = 0
+    return mems.astype(np.int32)
+
+
+def tiled_corpus(artifact, B: int) -> np.ndarray:
+    """B memories of ``artifact``'s fuzz corpus (seed B): above 1024 the
+    1024-memory corpus in tiles, each rolled by its index, so that no two
+    rows 1024 apart agree."""
+    from ..fuzz.corpus import make_corpus
+
+    base = make_corpus(artifact, min(B, 1024), seed=B)
+    if B <= 1024:
+        return base
+    return np.concatenate([np.roll(base, k, axis=0)
+                           for k in range(-(-B // 1024))])[:B]
+
+
+def out_of_range_program(builder, kind: str, M: int = 16):
+    """A program with one kind of access (``OUT_OF_RANGE``) whose address
+    leaves [0, M) where a memory's word says so: it loads word i at
+    iteration i and uses that word as an address (``swi`` stores to M in
+    every memory, ``negative`` loads from i - 2)."""
+    p = builder(f"bad_{kind}", 4)
+    i = p.carry("i", 0)
+    p.set_carry(i, p.op("SADD", i, 1))
+    addr = p.op("LWD", i)
+    if kind == "lwd":
+        p.op("LWD", addr)
+    elif kind == "lwi":
+        p.op("LWI", addr, None, imm=3)
+    elif kind == "swd":
+        p.op("SWD", addr, i)
+    elif kind == "swi":
+        p.op("SWI", None, i, imm=M)
+    elif kind == "negative":
+        p.op("LWI", i, None, imm=-2)
+    else:
+        raise ValueError(f"unknown out-of-range program {kind!r}; expected "
+                         f"one of {OUT_OF_RANGE}")
+    return p
+
+
+def first_error_case(builder):
+    """(program, memories, the numpy oracle's error text) where memory 4
+    leaves [0, 8) at node 5 in iteration 1, before memory 1 does at node 4
+    in iteration 2: the error names the first access over all memories."""
+    p = builder("first_error", 3)
+    i = p.carry("i", 0)
+    p.set_carry(i, p.op("SADD", i, 1))        # node 1
+    a = p.op("LWD", i)                        # node 2
+    b = p.op("LWI", i, None, imm=4)           # node 3
+    p.op("LWD", a)                            # node 4
+    p.op("LWD", b)                            # node 5
+    mems = np.zeros((6, 8), np.int32)
+    mems[1, 2] = 99
+    mems[4, 5] = -3
+    return p, mems, "first_error: node 5 (LWD) address outside [0, 8)"

@@ -1,5 +1,6 @@
-"""The CUDA kernels (the whole-program run, single and stacked, and the
-cycle step, its one-row launch) against their plain PyTorch versions, and
+"""The CUDA kernels (the whole-program run, single and stacked, the
+cycle step, its one-row launch, and the fuzz oracle) against their plain
+PyTorch versions (the oracle also against the numpy oracle), and
 the fuzz path's stacked run, activity harvest and triage, a kernel the
 port mapped itself, and the
 traced front-end's co-simulation, swept points of the size ladder, a
@@ -13,6 +14,8 @@ JAX, so they run where only the port is installed::
 
 Tolerance: exact equality, every value is int32.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -20,20 +23,24 @@ torch = pytest.importorskip("torch",
                             reason="optional extra: pip install .[torch]")
 
 from repro_torch.cgra.arch import Grid, neighbor_table  # noqa: E402
-from repro_torch.cgra.artifact import load_artifact  # noqa: E402
+from repro_torch.cgra.artifact import artifact_names, load_artifact  # noqa: E402
 from repro_torch.cgra.simulator import execute_asm  # noqa: E402
 from repro_torch.convert import fields_from_numpy, state_from_numpy  # noqa: E402
 from repro_torch.core.mapper import MapperConfig  # noqa: E402
 from repro_torch.fuzz.corpus import make_corpus  # noqa: E402
 from repro_torch.fuzz.activity import ActivityAccumulator  # noqa: E402
-from repro_torch.fuzz.engine import (fuzz_kernel, fuzz_program,  # noqa: E402
-                                     fuzz_stacked, run_stacked)
+from repro_torch.fuzz.engine import (batched_oracle, fuzz_kernel,  # noqa: E402
+                                     fuzz_program, fuzz_stacked, run_stacked)
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.cgra.isa import OPCODE  # noqa: E402
 from repro_torch.kernels.pe_array import (  # noqa: E402
     LANE_LAYOUT, UNIFORM_LAYOUT, cycle_step, lanes_fit, run_cycles)
+from repro_torch.kernels.oracle import (compile_oracle, oracle,  # noqa: E402
+                                        oracle_ref)
 from repro_torch.kernels.sample import (  # noqa: E402
-    HAZARDS, hazard_fields, random_fields, random_state)
+    HAZARDS, OUT_OF_RANGE, first_error_case, hazard_fields, oracle_edge_mems,
+    oracle_edges, out_of_range_program, random_fields, random_state,
+    tiled_corpus)
 
 pytestmark = pytest.mark.cuda
 
@@ -764,3 +771,131 @@ def test_served_mapping_fuzzes_from_the_server_cache(cuda, tmp_path):
     assert run_cycles.launches == before + 2
     stats = cache.stats()
     assert (stats["hits"], stats["misses"]) == (1, 0)
+
+
+# ---------------------------------------------------------------------------
+# the fuzz oracle's kernel (csrc/oracle.cu) against its plain version and
+# the numpy oracle, and fuzz_program's verdicts with it on the card
+# ---------------------------------------------------------------------------
+
+#: (arch, kernel) of every shipped artifact
+SHIPPED_ARTIFACTS = [(arch, name) for arch in ("4x4", "3x3")
+                     for name in artifact_names(arch)]
+ORACLE_BATCHES = (1, 33, 1024, 16384)
+
+
+def _oracle_same(got, want, tag):
+    (gv, gm), (wv, wm) = got, want
+    assert list(gv) == list(wv), tag
+    for n in wv:
+        assert gv[n].dtype == np.int64, (tag, n)
+        np.testing.assert_array_equal(
+            gv[n], np.broadcast_to(wv[n], gv[n].shape),
+            err_msg=f"{tag} node {n}")
+    assert gm.dtype == np.int64
+    np.testing.assert_array_equal(gm, wm, err_msg=f"{tag} memory")
+
+
+@pytest.mark.parametrize("arch,kernel", SHIPPED_ARTIFACTS)
+def test_oracle_kernel_matches_plain_version_and_numpy(cuda, arch, kernel):
+    art = load_artifact(arch, kernel)
+    table = art.oracle_table
+    for B in ORACLE_BATCHES:
+        mems = tiled_corpus(art, B)
+        before = oracle.launches
+        got = oracle(table, torch.as_tensor(mems, device=cuda))
+        assert oracle.launches == before + 1
+        _oracle_same(got, oracle_ref(table, torch.as_tensor(mems)), B)
+        _oracle_same(got, batched_oracle(art.program, mems), B)
+
+
+@pytest.mark.parametrize("trip", [0, 1, 5, 8])
+@pytest.mark.parametrize("B,M", [(0, 32), (1, 32), (33, 32), (1024, 32),
+                                 (70, 4096)])
+def test_oracle_kernel_on_hand_built_edges(cuda, trip, B, M):
+    """Wide FXPMUL products, shifts past 31 and negative, SRT of negative
+    words, BSFA / BZFA on zero and negative flags; an empty batch; at
+    M = 4096 the images stay in device memory."""
+    from repro_torch.cgra.programs import LoopBuilder
+
+    program = oracle_edges(LoopBuilder, trip)
+    table = compile_oracle(program)
+    mems = oracle_edge_mems(B, M, seed=trip * 7 + B)
+    got = oracle(table, torch.as_tensor(mems, device=cuda))
+    _oracle_same(got, oracle_ref(table, torch.as_tensor(mems)), (trip, B))
+    _oracle_same(got, batched_oracle(program, mems), (trip, B))
+
+
+@pytest.mark.parametrize("kind", OUT_OF_RANGE)
+def test_oracle_kernel_raises_the_numpy_address_error(cuda, kind):
+    from repro_torch.cgra.programs import LoopBuilder
+
+    M = 16
+    mems = np.tile(np.arange(M, dtype=np.int32) % 8, (6, 1))
+    mems[3, 2] = M + 5
+    mems[5, 1] = -1
+    program = out_of_range_program(LoopBuilder, kind, M)
+    with pytest.raises(IndexError) as want:
+        batched_oracle(program, mems)
+    with pytest.raises(IndexError) as got:
+        oracle(compile_oracle(program), torch.as_tensor(mems, device=cuda))
+    assert str(got.value) == str(want.value)
+
+
+def test_oracle_kernel_names_the_first_bad_access_over_all_memories(cuda):
+    from repro_torch.cgra.programs import LoopBuilder
+
+    program, mems, text = first_error_case(LoopBuilder)
+    wide = np.concatenate([np.zeros((200, 8), np.int32), mems])
+    with pytest.raises(IndexError, match=re.escape(text)):
+        oracle(compile_oracle(program), torch.as_tensor(wide, device=cuda))
+
+
+def test_oracle_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    table = load_artifact("4x4", "gsm").oracle_table
+    mems = torch.zeros((4, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        oracle(table, mems.to(torch.int64))
+    with pytest.raises(ValueError, match="contiguous"):
+        oracle(table, mems.t())
+
+
+def _faulty(art):
+    import dataclasses
+
+    from repro_torch.fuzz.triage import inject_fault
+
+    mutated, _, _ = inject_fault(art.asm)
+    return dataclasses.replace(art, asm=mutated)
+
+
+@pytest.mark.parametrize("fault", [False, True], ids=["clean", "fault"])
+@pytest.mark.parametrize("arch,kernel", [("4x4", "gsm"), ("4x4", "ema_fxp"),
+                                         ("4x4", "stringsearch"),
+                                         ("3x3", "sqrt")])
+def test_fuzz_program_verdicts_equal_with_the_oracle_kernel(
+        cuda, tmp_path, arch, kernel, fault):
+    """The same failing memories, mismatch lines and activity as the CPU
+    path; one oracle launch a chunk, in a ``fuzz.oracle`` span that names
+    the backend."""
+    from repro_torch.obs import report
+    from repro_torch.obs import trace as obs_trace
+
+    art = load_artifact(arch, kernel)
+    if fault:
+        art = _faulty(art)
+    mems = make_corpus(art, 700, seed=4)
+    cpu = fuzz_program(art, mems, batch=256, device="cpu")
+    before = oracle.launches
+    obs_trace.enable(str(tmp_path / "trace"))
+    try:
+        card = fuzz_program(art, mems, batch=256, device=cuda)
+    finally:
+        obs_trace.disable()
+    assert oracle.launches - before == 3
+    assert (card.status, card.failing, card.mismatches, card.activity) == (
+        cpu.status, cpu.failing, cpu.mismatches, cpu.activity)
+    assert (card.status == "mismatch") == fault
+    spans = [r for r in report.load(str(tmp_path / "trace"))
+             if r["k"] == "span" and r["name"] == "fuzz.oracle"]
+    assert [s["attrs"] for s in spans] == [{"backend": "cuda"}] * 3

@@ -59,6 +59,33 @@ def test_batched_oracle_matches_jax(arch, kernel):
     np.testing.assert_array_equal(final, j_final)
 
 
+@pytest.mark.parametrize("B,M", [(1, 128), (1023, 128), (1024, 128),
+                                 (1025, 128), (3000, 128), (5, 200_000)])
+def test_compare_batch_matches_jax_across_row_blocks(B, M):
+    """The port compares the images in blocks of rows
+    (``engine.COMPARE_WORDS``); the JAX package compares the whole batch.
+    Mismatches at the blocks' first and last rows, in node values only,
+    and in the high 32 bits only (which the contract ignores)."""
+    rng = np.random.default_rng(B * 7 + M)
+    sim_mem = rng.integers(-2**31, 2**31, (B, M), dtype=np.int64).astype(
+        np.int32)
+    want_mem = sim_mem.astype(np.int64)
+    rows = max(1, engine.COMPARE_WORDS // M)
+    for r in {0, rows - 1, rows, B - 1, B // 2}:
+        if 0 <= r < B:
+            want_mem[r, (r * 31) % M] ^= 1 << (r % 32)
+    want_mem[B // 3] += 1 << 40
+    sim_vals = {3: rng.integers(-2**31, 2**31, B).astype(np.int32),
+                5: rng.integers(-2**31, 2**31, B).astype(np.int32)}
+    want_vals = {n: v.astype(np.int64) for n, v in sim_vals.items()}
+    want_vals[5][B - 1] += 7
+    want_vals[9] = np.zeros(B, np.int64)
+    got = engine.compare_batch(sim_vals, sim_mem, want_vals, want_mem)
+    np.testing.assert_array_equal(
+        got, jax_engine.compare_batch(sim_vals, sim_mem, want_vals, want_mem))
+    assert got.any() and got.dtype == bool
+
+
 @pytest.mark.parametrize("arch,kernel", [("4x4", "gsm"), ("3x3", "sqrt")])
 def test_batched_oracle_iterations_match_jax(arch, kernel):
     art = load_artifact(arch, kernel)
