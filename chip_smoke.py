@@ -31,7 +31,10 @@ per line:
       in {4, 9, 16, 25, 36, 64} and B in {37, 1001}, not multiples of a
       block's rows, each in both layouts of the run where the shape takes
       the lane layout (P <= 32); then programs that run from a ring of two
-      chunks and memory images kept in device memory (``RING_CASES``);
+      chunks and memory images kept in device memory (``RING_CASES``),
+      and the launch shape of the benchmark's 8x8 ADRES-template cell (an
+      8x8 mesh, border neighbours the PE itself, P = 64 at four PEs a
+      warp, B = 16384, 112 rows from the ring; ``MESH_RING_CASES``);
    d. the stacked run (K programs of one grid in one launch) against its
       plain version and against K single whole-program launches, trace and
       final state bit-equal: random programs of different lengths,
@@ -73,6 +76,12 @@ per line:
    e. the main path again through its cache: 16 hits, each artifact
       equal to the cold pass's, status, failing memories, activity and
       energy equal; cold and warm seconds and their mapping seconds;
+   f. the 8x8 ADRES-template path: the frozen xorshift32 artifact of the
+      benchmark's ``adres-8x8`` configuration (P = 64, a mesh) through
+      ``fuzz_program`` over 32,768 memories in batches of 16,384, ``ok``
+      with no failing memory; one whole-program launch a chunk, each in
+      the uniform layout from the ring (``run_cycles.ring_launches``), one
+      oracle launch a chunk, and the cycle step never;
 5. a stream: gsm over 65,536 memories in batches of 16,384 (one
    whole-program launch and one oracle launch a chunk), and one
    main-path run of gsm under ``torch.profiler`` (device busy and idle
@@ -187,6 +196,12 @@ HAZARD_LENGTHS = (0, 1, 3, 4, 7, 8)
 #: keep the memory image in device memory (the last, M near 227 KB)
 RING_CASES = ((16, 128, 1000, 300), (36, 128, 37, 400), (4, 58_000, 3, 16),
               (16, 58_080, 8, 16))
+#: (P, M, B, T) of phase 3c on a square mesh, from a ring at four PEs a
+#: warp: the 8x8 ADRES-template cell's launch, its longest frozen program
+MESH_RING_CASES = ((64, 128, 16384, 112),)
+#: phase 4f: the frozen adres-8x8 artifact fuzzed, its memories and batch
+ADRES_DATA = Path("portbench") / "data" / "adres-8x8"
+ADRES_KERNEL, ADRES_MEMORIES, ADRES_BATCH = "xorshift32", 32_768, 16_384
 MAIN_MEMORIES, MAIN_BATCH = 2048, 1024
 #: run_cycles launches by layout in the phases that count them (the fuzz
 #: main path, cold and warm, the sweep's fuzz runs and the stacked path)
@@ -548,11 +563,12 @@ def run_cycles_vs_plain(device) -> int:
     and another, stores and loads over every address) at every P of
     ``HAZARD_PES`` and batches that are not a multiple of the block's rows,
     in each layout that takes the shape; then programs that run from a ring of two chunks and memory images
-    that stay in device memory (``RING_CASES``).  Returns the largest
+    that stay in device memory (``RING_CASES``), and the 8x8 ADRES-template
+    cell's launch on a mesh (``MESH_RING_CASES``).  Returns the largest
     absolute difference seen."""
     import numpy as np
     import torch
-    from repro_torch.cgra.arch import neighbor_table
+    from repro_torch.cgra.arch import Grid, neighbor_table
     from repro_torch.cgra.isa import OPCODE
     from repro_torch.kernels.pe_array import (UNIFORM_LAYOUT, cycle_step,
                                               run_cycles,
@@ -569,17 +585,22 @@ def run_cycles_vs_plain(device) -> int:
     cases += [(P, 128, B, SWEEP_STEPS, kind) for P in HAZARD_PES
               for B in HAZARD_BATCHES for kind in HAZARDS]
     cases += [(P, M, B, T, "ring") for P, M, B, T in RING_CASES]
+    cases += [(P, M, B, T, "mesh_ring") for P, M, B, T in MESH_RING_CASES]
     worst = 0
     kinds = {}
     layout_runs = {}
-    want = 0
+    want = want_rings = 0
     t0 = time.monotonic()
-    before = run_cycles.launches
+    before, rings_before = run_cycles.launches, run_cycles.ring_launches
     for P, M, B, T, kind in cases:
+        ring = kind in ("ring", "mesh_ring")
         layouts = (hazard_layouts(P, M) if kind in HAZARDS
-                   else (UNIFORM_LAYOUT,) if kind == "ring" else (None,))
-        nbr = torch.as_tensor(np.asarray(neighbor_table(grid_for(P)),
-                                         np.int32), device=device)
+                   else (UNIFORM_LAYOUT,) if ring else (None,))
+        side = int(round(P ** 0.5))
+        grid = Grid(side, side, "mesh") if kind == "mesh_ring" \
+            else grid_for(P)
+        nbr = torch.as_tensor(np.asarray(neighbor_table(grid), np.int32),
+                              device=device)
         rng = np.random.RandomState(7 + P * 100_003 + M * 101 + B + T)
         if kind in HAZARDS:
             f = hazard_fields(rng, kind, T, P, M)
@@ -587,11 +608,15 @@ def run_cycles_vs_plain(device) -> int:
             f = random_fields(rng, T, P, M, full_encoding=True)
         if kind == "all_nop":
             f["op"][:] = OPCODE["NOP"]
-        if kind == "ring":
+        if ring:
             geom = run_cycles_geometry(B, P, M, T=T, layout=UNIFORM_LAYOUT)
             check(geom.chunk_rows < T or not geom.memory_in_shared,
                   f"P={P} M={M} B={B} T={T} is not a ring or device-memory "
                   f"case: {geom}")
+            check(kind == "ring" or (geom.chunk_rows < T
+                                     and geom.warp_pes(P) == 4),
+                  f"mesh P={P} B={B} T={T} is not a ring launch at four "
+                  f"PEs a warp: {geom}")
             f["op"][T // 2:T // 2 + 40] = OPCODE["NOP"]
         kinds[kind] = kinds.get(kind, 0) + 1
         f = tensors(f, device)
@@ -605,8 +630,8 @@ def run_cycles_vs_plain(device) -> int:
         for layout in layouts:
             what = f"{kind} P={P} M={M} B={B} T={T} layout={layout}"
             final, outs = run_cycles(fields, state, nbr, layout=layout)
-            lname = LAYOUT_NAMES[run_cycles_geometry(B, P, M, 1, T,
-                                                     layout).layout]
+            geom = run_cycles_geometry(B, P, M, 1, T, layout)
+            lname = LAYOUT_NAMES[geom.layout]
             layout_runs[lname] = layout_runs.get(lname, 0) + (T > 0)
             for t in range(T):
                 diff = max_diff(outs[t], chain_outs[t])
@@ -627,15 +652,20 @@ def run_cycles_vs_plain(device) -> int:
                 worst = max(worst, diff)
                 check(diff == 0, f"{what}: final {name} differs by {diff}")
             want += 2 * (T > 0)
+            want_rings += 2 * (0 < geom.chunk_rows < T)
     launches = run_cycles.launches - before
+    rings = run_cycles.ring_launches - rings_before
     check(launches == want, f"run_cycles launched {launches} times for "
                             f"{want // 2} runs with rows, traced and not")
+    check(rings == want_rings, f"run_cycles counted {rings} launches from "
+                               f"a ring, not {want_rings}")
     check(all(layout_runs.get(n, 0) > 0 for n in LAYOUT_NAMES),
           f"phase 3c ran a layout no time: {layout_runs}")
     emit({"phase": "run_cycles_vs_plain", "cases": len(cases),
           "cases_by_kind": kinds, "runs_by_layout": layout_runs,
           "hazard_pes": list(HAZARD_PES),
           "rows_each": SWEEP_STEPS, "run_cycles_launches": launches,
+          "ring_launches": rings,
           "max_abs_err": worst, "seconds": round(time.monotonic() - t0, 3)})
     return worst
 
@@ -983,6 +1013,51 @@ def main_path_warm(artifacts, device, cache, cold_reports, cold_made,
           "cold_map_seconds": round(sum(r.map_time_s
                                         for r in cold_reports), 3),
           "warm_map_seconds": round(sum(r.map_time_s for r in reports), 3)})
+    return runs
+
+
+def adres_path(device) -> int:
+    """Phase 4f: the frozen ``ADRES_KERNEL`` artifact of the benchmark's
+    8x8 ADRES-template configuration through ``fuzz_program`` on the
+    card, at the cell's batch: ``ok`` with no failing memory, and per
+    chunk one run_cycles launch in the uniform layout from the ring and
+    one oracle launch.  Returns the run_cycles launches."""
+    from repro_torch.cgra.artifact import Artifact
+    from repro_torch.fuzz.corpus import make_corpus
+    from repro_torch.fuzz.engine import fuzz_program
+    from repro_torch.kernels.oracle import oracle
+    from repro_torch.kernels.pe_array import cycle_step, run_cycles
+
+    art = Artifact.from_dict(json.loads(
+        (ROOT / ADRES_DATA / f"{ADRES_KERNEL}.json").read_text()))
+    check((art.grid.topology, art.asm.num_pes) == ("mesh", 64),
+          f"{ADRES_KERNEL}@adres-8x8: {art.grid}")
+    mems = make_corpus(art, ADRES_MEMORIES, seed=0)
+    chunks = -(-ADRES_MEMORIES // ADRES_BATCH)
+    t0 = time.monotonic()
+    cycle_step.launches = run_cycles.launches = oracle.launches = 0
+    run_cycles.lane_launches = run_cycles.ring_launches = 0
+    rep = fuzz_program(art, mems, batch=ADRES_BATCH, device=device)
+    steps, runs = cycle_step.launches, run_cycles.launches
+    lanes, rings = run_cycles.lane_launches, run_cycles.ring_launches
+    oracles = oracle.launches
+    wall = time.monotonic() - t0
+    LAYOUT_LAUNCHES["adres_path"] = {"lane": lanes, "uniform": runs - lanes}
+    ORACLE_LAUNCHES["adres_path"] = oracles
+    check(rep.status == "ok" and rep.failing == [],
+          f"{ADRES_KERNEL}@adres-8x8: {rep.status} {rep.mismatches[:2]}")
+    check(runs == rings == rep.ring_launches == oracles == chunks,
+          f"adres_path: {runs} run_cycles launches, {rings} from the ring "
+          f"({rep.ring_launches} reported), {oracles} oracle launches, "
+          f"not one of each for {chunks} chunks")
+    check(steps == lanes == 0, f"adres_path: {steps} cycle-step and "
+                               f"{lanes} lane launches")
+    emit({"phase": "adres_path", "kernel": ADRES_KERNEL, "arch": rep.arch,
+          "status": rep.status, "ii": rep.ii, "memories": rep.memories,
+          "batch": rep.batch, "run_cycles_launches": runs,
+          "ring_launches": rings, "oracle_launches": oracles,
+          "mem_rate": rep.mem_rate, "exec_time_s": rep.exec_time_s,
+          "seconds": round(wall, 3)})
     return runs
 
 
@@ -2596,6 +2671,7 @@ def main(argv=None) -> int:
     steps, runs, reports, made = main_path(artifacts, device, cache)
     warm_runs = main_path_warm(artifacts, device, cache, reports, made,
                                time.monotonic() - t0)
+    adres_runs = adres_path(device)
     with oracle_launches("stacked main path"):
         stacked_runs = stacked_main_path(artifacts, reports, device)
     activity_phase(reports)
@@ -2631,6 +2707,7 @@ def main(argv=None) -> int:
     for path, want in (("fleet", fleet_runs), ("race", race_runs),
                        ("heuristic", heuristic_runs), ("serve", serve_runs),
                        ("triage", chunks), ("cosim", 0),
+                       ("adres_path", adres_runs),
                        ("stacked main path", 0)):
         check(ORACLE_LAUNCHES[path] == want,
               f"{path}: the oracle kernel launched {ORACLE_LAUNCHES[path]} "
@@ -2657,12 +2734,13 @@ def main(argv=None) -> int:
         line("pe_array.cycle_step", steps, step_err, step_ms, step_plain_ms,
              step_bound_ms, step_bound_by),
         line("pe_array.run_cycles",
-             runs + cosim_runs + warm_runs + fleet_runs + race_runs
-             + sweep_runs + heuristic_runs + serve_runs,
+             runs + cosim_runs + warm_runs + adres_runs + fleet_runs
+             + race_runs + sweep_runs + heuristic_runs + serve_runs,
              fused_err, *fused_times[MAIN_BATCH],
              launches_by_path={"fuzz main path": runs,
                                "cosim": cosim_runs,
                                "fuzz main path, warm cache": warm_runs,
+                               "adres-8x8 fuzz path": adres_runs,
                                "fleet": fleet_runs, "race": race_runs,
                                "sweep": sweep_runs,
                                "heuristic": heuristic_runs,

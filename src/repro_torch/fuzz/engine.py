@@ -42,6 +42,7 @@ from ..cgra.simulator import execute_asm, stacked_preset_state
 from ..device import resolve_device
 from ..kernels.oracle import oracle
 from ..kernels.ops import decode_fields, run_program
+from ..kernels.pe_array import run_cycles
 from ..kernels.ref import InstrRow, PEState
 from ..obs import trace as obs_trace
 from .activity import ActivityAccumulator
@@ -296,6 +297,7 @@ class FuzzReport:
     readback_time_s: float = 0.0     # the part of exec_time_s after launch
     compare_time_s: float = 0.0
     activity_time_s: float = 0.0
+    ring_launches: int = 0           # run_cycles launches from a ring
     mem_rate: float = 0.0            # memories verified per second
     activity: Optional[Dict] = None
     energy: Optional[Dict] = None    # static vs empirical dynamic energy
@@ -349,7 +351,12 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
     the launch, the wait and the copy back), ``fuzz.compare`` and
     ``fuzz.activity`` (also the accumulator's set-up and its report).
     The report's times are their projections: ``exec_time_s`` is execute
-    + readback.
+    + readback.  Where ``fuzz.execute`` makes a launch it carries, from
+    ``run_cycles.last_geometry``, the launch's ``pes_per_warp`` (in the
+    lane layout a warp holds every PE of its batch rows) and
+    ``chunk_rows`` (below the program's rows, the program runs from a
+    ring); ``ring_launches`` counts the launches that did
+    (``run_cycles.ring_launches``).
     """
     dev = resolve_device(device)
     asm, program = artifact.asm, artifact.program
@@ -363,6 +370,7 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
                      backend=_backend(dev))
     times = dict.fromkeys(_PHASES, 0.0)
     oracle_backend = "cuda" if dev.type == "cuda" else "numpy"
+    rings = run_cycles.ring_launches
     root = obs_trace.timed_span("fuzz.program", kernel=artifact.kernel,
                                 memories=n, batch=rep.batch,
                                 chunks=-(-n // batch))
@@ -375,10 +383,15 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
             chunk = mems[lo:lo + batch]
             with obs_trace.timed_span("fuzz.chunk", lo=lo,
                                       rows=chunk.shape[0]):
-                with _phase(times, "execute"):
+                with _phase(times, "execute") as sp:
+                    launches = run_cycles.launches
                     final, outs, _ = execute_asm(
                         asm, artifact.grid, chunk, batch=chunk.shape[0],
                         device=dev)
+                    if run_cycles.launches > launches:
+                        geom = run_cycles.last_geometry
+                        sp.set(pes_per_warp=geom.warp_pes(asm.num_pes),
+                               chunk_rows=geom.chunk_rows)
                 with _phase(times, "readback"):
                     sim_vals = node_values_from_outs(asm, outs, program.trip)
                     sim_mem = final.mem.cpu().numpy()
@@ -412,6 +425,7 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
     rep.oracle_time_s = round(times["oracle"], 4)
     rep.compare_time_s = round(times["compare"], 4)
     rep.activity_time_s = round(times["activity"], 4)
+    rep.ring_launches = run_cycles.ring_launches - rings
     rep.mem_rate = round(n / root.dur, 2) if root.dur > 0 and n else 0.0
     rep.mismatches = rep.mismatches[:_MISMATCH_SAMPLE_CAP]
     if rep.failing:

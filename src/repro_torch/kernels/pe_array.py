@@ -19,8 +19,11 @@ Each wrapper launches its kernel for CUDA tensors and raises if it cannot.
 CPU tensors go to the plain versions, ``ref.cycle_step_ref``,
 ``ref.run_cycles_ref`` and ``ref.run_stacked_ref``.  ``cycle_step.launches``
 and ``run_cycles.launches`` count the launches each wrapper makes and
-nothing else; ``run_cycles.lane_launches`` counts those of
-``run_cycles``'s in the lane layout.
+nothing else; of ``run_cycles``'s, ``run_cycles.lane_launches`` counts
+those in the lane layout and ``run_cycles.ring_launches`` those whose
+program runs from a ring of two chunks (``chunk_rows < T``);
+``run_cycles.last_geometry`` is the :class:`Geometry` of its latest
+launch.
 """
 from __future__ import annotations
 
@@ -163,6 +166,12 @@ class Geometry(NamedTuple):
     chunk_rows: int       # C program rows a slot; C < T runs from a ring
     memory_in_shared: int  # 1: the image in shared memory, 0: in mem_o
     layout: int           # UNIFORM_LAYOUT or LANE_LAYOUT
+
+    def warp_pes(self, P: int) -> int:
+        """PEs of a batch row that one warp holds: every one in the lane
+        layout, :func:`pes_per_warp` of them, run in turn, in the
+        uniform one."""
+        return P if self.layout == LANE_LAYOUT else pes_per_warp(P)
 
 
 def pes_per_warp(P: int) -> int:
@@ -312,10 +321,15 @@ def run_cycles(fields: InstrRow, state: PEState, neighbors: torch.Tensor,
     out = PEState(*(torch.empty_like(t) for t in state))
     _launch(fields, state, neighbors, out, outs, T, B, P, M, geom, device)
     run_cycles.launches += 1
+    run_cycles.last_geometry = geom
     if geom.layout == LANE_LAYOUT:
         run_cycles.lane_launches += 1
+    if geom.chunk_rows < T:
+        run_cycles.ring_launches += 1
     return out, outs
 
 
 run_cycles.launches = 0
 run_cycles.lane_launches = 0        # of them, in the lane layout
+run_cycles.ring_launches = 0        # of them, the program from a ring
+run_cycles.last_geometry = None     # the shape of the latest launch

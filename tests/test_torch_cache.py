@@ -233,6 +233,8 @@ def test_fuzz_kernel_cache_hit_gives_the_jax_report(tmp_path):
                          ii_max=32, backend="cdcl"),
         cache=str(tmp_path / "j"))
     docs = [r.to_dict() for r in (cold, warm, want)]
+    for doc in docs[:2]:
+        assert doc.pop("ring_launches") == 0     # the port's; no launch
     for doc in docs:
         for k in ("map_time_s", "exec_time_s", "oracle_time_s", "mem_rate"):
             doc.pop(k)

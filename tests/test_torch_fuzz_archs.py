@@ -1,10 +1,12 @@
 """``fuzz_kernel`` off the torus against the JAX package's: a few kernels
 on ``mesh-4x4``, ``bordermem-4x4`` and ``adres-4x4`` (the archs of the
 JAX nightly fuzz fleet, and one with a capability table that leaves some
-kernels unmapped), 256 memories each, CDCL pinned.  The port maps cold
-into a cache directory that the JAX package then reads, so both fuzz the
-same mapping; verdicts, failing memories, mismatches, activity and energy
-must be equal.  Everything runs on the CPU.
+kernels unmapped), and on the ADRES template at its 8x8 size
+(``mesh-8x8:mem=row0,ports=1/row``, P = 64), 256 memories each, CDCL
+pinned.  The port maps cold into a cache directory that the JAX package
+then reads, so both fuzz the same mapping; verdicts, failing memories,
+mismatches, activity and energy must be equal.  Everything runs on the
+CPU.
 """
 import pytest
 
@@ -21,10 +23,12 @@ from repro_torch.fuzz import engine  # noqa: E402
 BUDGET = dict(backend="cdcl", per_ii_timeout_s=60.0, total_timeout_s=120.0,
               ii_max=32)
 #: (arch, kernels): kernels that map within a second or two there, and on
-#: adres-4x4 one (dotprod) that comes out unmapped
+#: the two ADRES-template arrays one (dotprod) that comes out unmapped
 CASES = [("mesh-4x4", ("gsm", "saxpy", "relu_clamp", "xorshift32")),
          ("bordermem-4x4", ("gsm", "saxpy", "relu_clamp", "xorshift32")),
-         ("adres-4x4", ("bitcount", "saxpy", "xorshift32", "dotprod"))]
+         ("adres-4x4", ("bitcount", "saxpy", "xorshift32", "dotprod")),
+         ("mesh-8x8:mem=row0,ports=1/row",
+          ("bitcount", "saxpy", "xorshift32", "dotprod"))]
 _TIMES = ("map_time_s", "exec_time_s", "oracle_time_s", "mem_rate",
           "backend", "readback_time_s", "compare_time_s", "activity_time_s")
 
@@ -42,6 +46,7 @@ def test_fuzz_kernel_off_the_torus_matches_jax(tmp_path, arch, kernels):
                                       config=JaxConfig(**BUDGET),
                                       cache=j_cache)
         got, exp = rep.to_dict(), want.to_dict()
+        assert got.pop("ring_launches") == 0     # the port's; no launch
         for doc in (got, exp):
             for key in _TIMES:
                 doc.pop(key, None)
