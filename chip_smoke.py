@@ -90,7 +90,10 @@ per line:
    against its plain version on the card and the numpy oracle, node
    values and images bit-equal, and on gsm its device time per launch,
    the whole call at the host's pace, its plain version, the numpy
-   oracle and its bound;
+   oracle and its bound; then the verdict epilogue on every shipped
+   artifact at the same B, its mask equal to ``compare_batch``'s with
+   differences planted and without, and its launch timed beside the plain
+   launch in turns by CUDA events: the epilogue's device us per launch;
 6. times at B in {1024, 16384}: the cycle step per launch on a random row
    (P=16, M=128), and the whole-program run on gsm's program (T=84), each
    as device time under ``torch.profiler`` and at the host's issue pace
@@ -2182,6 +2185,7 @@ def oracle_phase(device, artifacts) -> dict:
     check(launches == len(artifacts) * len(TIMED_BATCHES),
           f"oracle phase: {launches} launches")
     ORACLE_LAUNCHES["oracle phase"] = launches
+    verdict_phase(device, artifacts)
 
     art = next(a for a in artifacts if a.kernel == "gsm")
     table = art.oracle_table
@@ -2229,6 +2233,82 @@ def oracle_phase(device, artifacts) -> dict:
         emit({"phase": "oracle_timing", "kernel": "gsm", "batch": B,
               "nodes": N, "trip": trip, **times[B]})
     return max_err, times
+
+
+#: the faults the verdict phase plants, and a planted row every so many
+VERDICT_CHECKS, VERDICT_ROW_STEP = ("neither", "both"), 97
+#: back-to-back launches a CUDA-event reading of the verdict phase spans
+VERDICT_CALLS = 20
+
+
+def verdict_phase(device, artifacts) -> None:
+    """The oracle kernel's verdict epilogue (``oracle_verdict``) on every
+    shipped artifact at ``TIMED_BATCHES``: its mask equal to
+    ``compare_batch``'s on the same operands, the oracle's own results
+    with differences planted at every ``VERDICT_ROW_STEP``-th row and
+    without; then the plain launch and the verdict launch, each
+    ``VERDICT_CALLS`` back to back between two CUDA events, in turns
+    (plain, verdict, verdict, plain), on a chunk already on the card.  One
+    line an artifact and B: device us per launch of each and the
+    epilogue's, their difference."""
+    import numpy as np
+    import torch
+    from repro_torch.fuzz.engine import batched_oracle, compare_batch
+    from repro_torch.kernels.oracle import enqueue, oracle, oracle_verdict
+    from repro_torch.kernels.sample import tiled_corpus, verdict_case
+
+    def us_per_launch(fn) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(VERDICT_CALLS):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) * 1e3 / VERDICT_CALLS
+
+    before = oracle.verdicts
+    for art in artifacts:
+        table = art.oracle_table
+        for B in TIMED_BATCHES:
+            mems = tiled_corpus(art, B)
+            dev_mems = torch.as_tensor(mems, device=device)
+            ov, om = batched_oracle(art.program, mems)
+            what = f"verdict {art.arch}/{art.kernel} B={B}"
+            for fault in VERDICT_CHECKS:
+                vals, sim_mem = verdict_case(ov, om, fault,
+                                             range(0, B, VERDICT_ROW_STEP))
+                nodes = list(vals)
+                slots = [table.node_ids.index(n) for n in nodes]
+                sim = torch.as_tensor(np.stack([vals[n] for n in nodes]),
+                                      device=device)
+                sim_image = torch.as_tensor(sim_mem, device=device)
+                got = oracle_verdict(table, dev_mems, sim_image, sim, slots)
+                want = compare_batch(vals, sim_mem, ov, om)
+                check(np.array_equal(got.bad, want),
+                      f"{what} {fault}: {int((got.bad != want).sum())} "
+                      f"verdicts differ from compare_batch")
+                check(want.any() == (fault != "neither"),
+                      f"{what} {fault}: planted {int(want.sum())} failures")
+            operands = (sim_image, sim, slots)
+            readings = {"plain": [], "verdict": []}
+            for side in ("plain", "verdict", "verdict", "plain"):
+                readings[side].append(us_per_launch(
+                    (lambda: enqueue(table, dev_mems)) if side == "plain"
+                    else (lambda: enqueue(table, dev_mems, operands))))
+            plain_us = sum(readings["plain"]) / 2
+            verdict_us = sum(readings["verdict"]) / 2
+            emit({"phase": "oracle_verdict", "kernel": art.kernel,
+                  "arch": art.arch, "batch": B, "nodes_compared": len(slots),
+                  "plain_us": plain_us, "verdict_us": verdict_us,
+                  "epilogue_us": verdict_us - plain_us,
+                  "readings_us": readings})
+    ORACLE_LAUNCHES["oracle phase, verdict"] = checks = \
+        len(artifacts) * len(TIMED_BATCHES) * len(VERDICT_CHECKS)
+    timed = len(artifacts) * len(TIMED_BATCHES) * 2 * VERDICT_CALLS
+    check(oracle.verdicts - before == checks + timed,
+          f"verdict phase: {oracle.verdicts - before} verdict launches, not "
+          f"{checks} checks and {timed} timed")
 
 
 def host_paced_ms(fn, calls: int, reps: int) -> float:

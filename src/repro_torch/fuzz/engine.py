@@ -9,9 +9,10 @@ Counterpart of ``src/repro/fuzz/engine.py``:
   :func:`repro_torch.cgra.simulator.execute_asm` (the PE array's batch
   axis, on the card by default), compares every last-iteration node value
   and the final memory image against the batched oracle (on the card the
-  oracle kernel of :mod:`repro_torch.kernels.oracle`), reports
-  per-memory verdicts with the comparison contract of ``verify``, and
-  harvests switching activity from each chunk's trace on its device.
+  oracle kernel of :mod:`repro_torch.kernels.oracle`, which also makes
+  the comparison there), reports per-memory verdicts with the comparison
+  contract of ``verify``, and harvests switching activity from each
+  chunk's trace on its device.
 * :func:`fuzz_kernel` maps a registry kernel through the port's
   ``Toolchain`` as the JAX package does (``map_time_s``; ``unmapped``,
   ``timeout`` and ``error`` when no mapping comes back), fuzzes the
@@ -40,7 +41,7 @@ from ..cgra.isa import FXP_FRAC_BITS, NOP
 from ..cgra.programs import LoopBuilder, Val
 from ..cgra.simulator import execute_asm, stacked_preset_state
 from ..device import resolve_device
-from ..kernels.oracle import oracle
+from ..kernels.oracle import OracleVerdict, oracle_verdict
 from ..kernels.ops import decode_fields, run_program
 from ..kernels.pe_array import run_cycles
 from ..kernels.ref import InstrRow, PEState
@@ -196,6 +197,9 @@ def batched_oracle_iterations(
 # ---------------------------------------------------------------------------
 
 
+#: mismatch lines a report keeps
+_MISMATCH_SAMPLE_CAP = 8
+
 #: int64 words of the final images that :func:`compare_batch` masks at a
 #: time (1 MB): a whole batch's masks (16 MB each at 16,384 x 128) went
 #: back to the OS when freed and were faulted in again every chunk
@@ -256,20 +260,65 @@ def mismatch_strings(
     return errors
 
 
+def last_cells(asm: AssembledCIL, trip: int, keep=None
+               ) -> Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[int, ...]]:
+    """``(nodes, rows, pes)``: the trace cell that holds each node's
+    last-iteration value, one a node, in ``asm.node_of_cell``'s order (a
+    node two cells hold takes the later one, as a dict built from them
+    does).  ``keep``, where given, holds the nodes to take."""
+    cell: Dict[int, Tuple[int, int]] = {}
+    for (t, pe), (n, j) in asm.node_of_cell.items():
+        if j == trip - 1 and (keep is None or n in keep):
+            cell[n] = (t, pe)
+    return (tuple(cell), tuple(t for t, _ in cell.values()),
+            tuple(pe for _, pe in cell.values()))
+
+
 def node_values_from_outs(
     asm: AssembledCIL, outs: torch.Tensor, trip: int
 ) -> Dict[int, np.ndarray]:
     """Last-iteration per-node values from an out trace (T, B, P).  Only
     those cells leave the device."""
-    cells = [(t, pe, n) for (t, pe), (n, j) in asm.node_of_cell.items()
-             if j == trip - 1]
-    if not cells:
+    nodes, ts, pes = last_cells(asm, trip)
+    if not nodes:
         return {}
-    ts, pes, nodes = zip(*cells)
     index = dict(device=outs.device, dtype=torch.long)
     picked = outs[torch.tensor(ts, **index), :,
                   torch.tensor(pes, **index)].cpu().numpy()
-    return {n: picked[i] for i, n in enumerate(nodes)}
+    return dict(zip(nodes, picked))
+
+
+def failing_row_mismatches(
+    program: LoopBuilder, nodes: Sequence[int], slots: Sequence[int],
+    sim_vals: torch.Tensor, sim_mem: torch.Tensor, verdict: OracleVerdict,
+    failing: np.ndarray, lo: int, lines: List[str],
+) -> int:
+    """Extend ``lines`` as the full-batch path extends its mismatch sample:
+    :func:`mismatch_strings` on each failing row in turn (``failing``,
+    ascending, in the chunk that starts at corpus index ``lo``) until the
+    sample holds ``_MISMATCH_SAMPLE_CAP`` lines.  Only the rows it asks
+    about leave the operands' device: ``sim_vals`` (K, B), the simulator's
+    values of ``nodes``; ``sim_mem`` (B, M); the oracle's ``verdict.vals``
+    at table ``slots`` and ``verdict.image``.  Returns the rows copied
+    back."""
+    back = 0
+    pick = np.asarray(slots, np.intp)
+    while len(lines) < _MISMATCH_SAMPLE_CAP and back < len(failing):
+        take = failing[back:back + _MISMATCH_SAMPLE_CAP - len(lines)]
+        back += len(take)
+        rows = torch.as_tensor(take, dtype=torch.long, device=sim_mem.device)
+        sim_v = sim_vals.index_select(1, rows).cpu().numpy()
+        want_v = verdict.vals.index_select(1, rows).cpu().numpy()[pick]
+        sim_m = sim_mem.index_select(0, rows).cpu().numpy()
+        want_m = verdict.image.index_select(0, rows).cpu().numpy()
+        got, want = dict(zip(nodes, sim_v)), dict(zip(nodes, want_v))
+        for j, i in enumerate(take):
+            if len(lines) >= _MISMATCH_SAMPLE_CAP:
+                break
+            lines.extend(mismatch_strings(
+                program, got, sim_m, want, want_m, j, label=lo + int(i)
+            )[:_MISMATCH_SAMPLE_CAP])
+    return back
 
 
 # ---------------------------------------------------------------------------
@@ -312,9 +361,6 @@ class FuzzReport:
         return dataclasses.asdict(self)
 
 
-_MISMATCH_SAMPLE_CAP = 8
-
-
 #: the phases of a :func:`fuzz_program` chunk, each a ``fuzz.<phase>``
 #: span and the source of one ``FuzzReport`` time
 _PHASES = ("execute", "readback", "oracle", "compare", "activity")
@@ -340,16 +386,25 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
 
     On the card the oracle is one launch of the oracle kernel over the
     artifact's compiled table (``Artifact.oracle_table``), on its own
-    device copy of the chunk from the host array; on the CPU it is
-    :func:`batched_oracle`.
+    device copy of the chunk from the host array, with the verdict
+    epilogue (:func:`~repro_torch.kernels.oracle.oracle_verdict`): the
+    chunk's final images and last-iteration node values stay on the card,
+    only the verdict mask comes back, and the four operands of a failing
+    row only where :func:`mismatch_strings` is asked about it
+    (:func:`failing_row_mismatches`).  On the CPU the oracle is
+    :func:`batched_oracle` and the comparison :func:`compare_batch`.  Both
+    give the same failing memories and mismatch lines.
 
     Every phase is a span (:mod:`repro_torch.obs.trace`) under
     ``fuzz.program``, one ``fuzz.chunk`` a chunk: ``fuzz.execute``
-    (decode, preset and the launch's enqueue), ``fuzz.readback`` (the
-    wait on the device and the copies back), ``fuzz.oracle`` (attribute
-    ``backend``, ``cuda`` or ``numpy``; on the card the chunk's copy in,
-    the launch, the wait and the copy back), ``fuzz.compare`` and
-    ``fuzz.activity`` (also the accumulator's set-up and its report).
+    (decode, preset and the launch's enqueue), ``fuzz.readback`` (on the
+    card the gather of the node values into a (K, B) device tensor; on the
+    CPU that gather and the final images, copied back), ``fuzz.oracle``
+    (attribute ``backend``, ``cuda`` or ``numpy``; on the card the chunk's
+    copy in, the launch, the verdict's copy back and the wait),
+    ``fuzz.compare`` (attribute ``backend``; on the card ``rows_back``,
+    the failing rows copied back) and ``fuzz.activity`` (also the
+    accumulator's set-up and its report).
     The report's times are their projections: ``exec_time_s`` is execute
     + readback.  Where ``fuzz.execute`` makes a launch it carries, from
     ``run_cycles.last_geometry``, the launch's ``pes_per_warp`` (in the
@@ -369,7 +424,17 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
                      batch=min(batch, n) if n else batch,
                      backend=_backend(dev))
     times = dict.fromkeys(_PHASES, 0.0)
-    oracle_backend = "cuda" if dev.type == "cuda" else "numpy"
+    card = dev.type == "cuda"
+    oracle_backend = "cuda" if card else "numpy"
+    if card:
+        table = artifact.oracle_table
+        slot_of = ({n: i for i, n in enumerate(table.node_ids)}
+                   if table.trip > 0 else {})
+        nodes, ts, pes = last_cells(asm, program.trip, keep=slot_of)
+        slots = tuple(slot_of[n] for n in nodes)
+        index = dict(device=dev, dtype=torch.long)
+        cells = (torch.tensor(ts, **index), slice(None),
+                 torch.tensor(pes, **index))
     rings = run_cycles.ring_launches
     root = obs_trace.timed_span("fuzz.program", kernel=artifact.kernel,
                                 memories=n, batch=rep.batch,
@@ -393,27 +458,41 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
                         sp.set(pes_per_warp=geom.warp_pes(asm.num_pes),
                                chunk_rows=geom.chunk_rows)
                 with _phase(times, "readback"):
-                    sim_vals = node_values_from_outs(asm, outs, program.trip)
-                    sim_mem = final.mem.cpu().numpy()
+                    if card:
+                        sim_vals = outs[cells].contiguous()
+                    else:
+                        sim_vals = node_values_from_outs(asm, outs,
+                                                         program.trip)
+                        sim_mem = final.mem.cpu().numpy()
                 with _phase(times, "oracle", backend=oracle_backend):
-                    if dev.type == "cuda":
-                        oracle_vals, oracle_mem = oracle(
-                            artifact.oracle_table,
-                            torch.as_tensor(np.ascontiguousarray(chunk),
-                                            device=dev))
+                    if card:
+                        verdict = oracle_verdict(
+                            table, torch.as_tensor(
+                                np.ascontiguousarray(chunk), device=dev),
+                            final.mem.contiguous(), sim_vals, slots)
                     else:
                         oracle_vals, oracle_mem = batched_oracle(program,
                                                                  chunk)
-                with _phase(times, "compare"):
-                    bad = compare_batch(sim_vals, sim_mem, oracle_vals,
-                                        oracle_mem)
-                    for i in np.nonzero(bad)[0]:
-                        rep.failing.append(lo + int(i))
-                        if len(rep.mismatches) < _MISMATCH_SAMPLE_CAP:
-                            rep.mismatches.extend(mismatch_strings(
-                                program, sim_vals, sim_mem, oracle_vals,
-                                oracle_mem, int(i), label=lo + int(i)
-                            )[:_MISMATCH_SAMPLE_CAP])
+                with _phase(times, "compare", backend=oracle_backend) as sp:
+                    if card:
+                        bad = np.nonzero(verdict.bad)[0]
+                        rep.failing.extend((lo + bad).tolist())
+                        sp.set(rows_back=failing_row_mismatches(
+                            program, nodes, slots, sim_vals, final.mem,
+                            verdict, bad, lo, rep.mismatches))
+                        # the oracle's device buffer goes before the next
+                        # chunk's trace is made
+                        verdict = None
+                    else:
+                        bad = compare_batch(sim_vals, sim_mem, oracle_vals,
+                                            oracle_mem)
+                        for i in np.nonzero(bad)[0]:
+                            rep.failing.append(lo + int(i))
+                            if len(rep.mismatches) < _MISMATCH_SAMPLE_CAP:
+                                rep.mismatches.extend(mismatch_strings(
+                                    program, sim_vals, sim_mem, oracle_vals,
+                                    oracle_mem, int(i), label=lo + int(i)
+                                )[:_MISMATCH_SAMPLE_CAP])
                 if acc is not None:
                     with _phase(times, "activity"):
                         acc.update(outs)

@@ -33,7 +33,9 @@
 // ten integer operations a node and iteration a memory (16384 x 304 x 10
 // at most on the shipped kernels, under 1 us at 16.7 T int32 ops/s).  With
 // one thread a memory the launch is latency bound: every thread walks the
-// same chain of nodes, each a few dependent shared-memory accesses.
+// same chain of nodes, each a few dependent shared-memory accesses.  The
+// verdict epilogue reads the simulator's images and node values once more
+// (8 MB and K x 64 KB at B = 16384, M = 128: 2.5 us at 3.35 TB/s).
 //
 // Design.  The table is the same for every memory, so a block of T = 32
 // memories (one a thread, one warp) runs it in lockstep: the warp reads
@@ -56,6 +58,29 @@
 // in the output buffer in device memory (kImageShared false):
 // the block widens its rows there first, and each thread then loads and
 // stores its own row.  The ragged last block masks its missing rows.
+//
+// The verdict epilogue (kVerdict; kernels/oracle.py::oracle_verdict).  The
+// fuzz path compares the simulator's result with the oracle's, and both
+// are on the card when the oracle runs: the simulator's final images
+// (B, M) int32 and its last-iteration node values (K, B) int32, each with
+// the table slot it belongs to.  The block holds its rows' oracle images
+// in shared memory already, so the compare costs one more read of the
+// simulator's rows and no pass over the oracle's output.  Each thread
+// compares its K node values with vals[slot][t], and its own row of the
+// simulator's images with its own oracle image, column t of
+// img[word][T + 1] (consecutive threads, distinct banks), or its own row
+// in the output buffer where the images stay in device memory: a thread
+// reads only what it wrote itself, so the epilogue needs no barrier and
+// no warp vote, and runs before the write-back's barrier.  A block is one
+// warp whose instructions issue one after another, so the instructions a
+// word set the epilogue's time: the simulator's row comes in 16-byte
+// loads, four words each, eight in flight (where M % 4 == 0), with no
+// index arithmetic a word.  A coalesced walk over the block's rows as one
+// run of words needs a word's row and place from a division or a wrapping
+// counter, several times the instructions.  Every comparison is int32
+// equality, the low 32 bits that fuzz/engine.py::compare_batch compares.
+// The verdict word of a memory is kNodeMismatch | kImageMismatch of what
+// differed, 0 where all agree.  A launch without kVerdict runs none of it.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -77,6 +102,20 @@ constexpr int kFxpFracBits = 16;
 constexpr int kMaxThreads = 32;
 constexpr int kMaxSharedBytes = 232448;
 constexpr int kDefaultSharedBytes = 48 * 1024;
+// Bits of a verdict word.
+constexpr int32_t kNodeMismatch = 1;
+constexpr int32_t kImageMismatch = 2;
+
+// The verdict epilogue's operands (kVerdict): the simulator's final
+// images (B, M) and last-iteration node values (K, B), the table slot of
+// each of those K nodes, and one verdict word a memory.
+struct Verdict {
+  const int32_t* sim_image;
+  const int32_t* sim_vals;
+  const int32_t* slots;
+  int32_t* word;
+  int K;
+};
 
 __device__ __forceinline__ int32_t alu(int32_t op, int32_t a, int32_t b) {
   const uint32_t ua = static_cast<uint32_t>(a);
@@ -115,16 +154,71 @@ __device__ __forceinline__ int32_t fetch(int32_t kind, int32_t arg,
   }
 }
 
+// The verdict's node bit of thread t: its K node values against the
+// simulator's, kLoads loads in flight at a time.
+constexpr int kLoads = 16;
+
+__device__ __forceinline__ int32_t node_mismatch(const Verdict& v,
+                                                 const int32_t* vals, int B,
+                                                 int64_t b0, int T, int t) {
+  int32_t word = 0;
+  for (int k0 = 0; k0 < v.K; k0 += kLoads) {
+    int32_t got[kLoads];
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j)
+      got[j] = k0 + j < v.K
+                   ? __ldg(v.sim_vals + static_cast<int64_t>(k0 + j) * B +
+                           b0 + t)
+                   : 0;
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j)
+      if (k0 + j < v.K && got[j] != vals[__ldg(v.slots + k0 + j) * T + t])
+        word = kNodeMismatch;
+  }
+  return word;
+}
+
+// The verdict's image bit of thread t: its row of the simulator's images
+// (`sim_row`, M words) against its own oracle image, column t of
+// img[word][S] or its int64 row `row`.  Where the rows allow it, 16-byte
+// loads, four words each.
+template <bool kImageShared>
+__device__ __forceinline__ int32_t image_mismatch(
+    const int32_t* __restrict__ sim_row, const int32_t* img,
+    const int64_t* row, int M, int S, int t) {
+  bool differs = false;
+  if (kImageShared && (M & 3) == 0 &&
+      (reinterpret_cast<uintptr_t>(sim_row) & 15) == 0) {
+    const int4* sim4 = reinterpret_cast<const int4*>(sim_row);
+    const int32_t* own = img + t;
+#pragma unroll 8
+    for (int c = 0; c < M / 4; ++c) {
+      const int4 s = __ldg(sim4 + c);
+      const int32_t* o = own + 4 * c * S;
+      differs |= (s.x != o[0]) | (s.y != o[S]) | (s.z != o[2 * S]) |
+                 (s.w != o[3 * S]);
+    }
+  } else {
+#pragma unroll 8
+    for (int w = 0; w < M; ++w)
+      differs |= __ldg(sim_row + w) != (kImageShared
+                                            ? img[w * S + t]
+                                            : static_cast<int32_t>(row[w]));
+  }
+  return differs ? kImageMismatch : 0;
+}
+
 // One block: T memories (rows b0 .. b0 + T - 1 of the batch), the table
 // staged, the images in shared memory (kImageShared) or in `image`'s rows.
-// Output: image (B, M) int64, then vals (N, B) int64, then the error word.
-template <bool kImageShared>
+// Output: image (B, M) int64, vals (N, B) int64, the error word and, with
+// kVerdict, a verdict word a memory.
+template <bool kImageShared, bool kVerdict>
 __global__ void __launch_bounds__(kMaxThreads)
 oracle_kernel(const int32_t* __restrict__ table,
               const int32_t* __restrict__ mem, int64_t* __restrict__ image,
               int64_t* __restrict__ vals_o,
               unsigned long long* __restrict__ error, int N, int C, int trip,
-              int B, int M) {
+              int B, int M, Verdict verdict) {
   extern __shared__ __align__(16) int32_t smem[];
   const int T = blockDim.x, t = threadIdx.x;
   const int64_t b0 = static_cast<int64_t>(blockIdx.x) * T;
@@ -196,6 +290,11 @@ oracle_kernel(const int32_t* __restrict__ table,
     if (first_error != ULLONG_MAX) atomicMin(error, first_error);
     for (int pos = 0; pos < N; ++pos)
       vals_o[static_cast<int64_t>(pos) * B + b0 + t] = vals[pos * T + t];
+    if (kVerdict)
+      verdict.word[b0 + t] =
+          node_mismatch(verdict, vals, B, b0, T, t) |
+          image_mismatch<kImageShared>(verdict.sim_image + (b0 + t) * M, img,
+                                       row, M, S, t);
   }
   if (kImageShared) {
     __syncthreads();
@@ -206,18 +305,17 @@ oracle_kernel(const int32_t* __restrict__ table,
   }
 }
 
-}  // namespace
-
-// One launch over B memories of M words: `table` (8N + 2C int32) and `mem`
-// (B, M) int32 on the device; `out` B*M + N*B + 1 int64 (the final images,
-// the last iteration's node values [N][B], the error word, all ones when
-// no address left [0, M), else the first (iteration * N + slot)).  The
-// geometry comes from kernels/oracle.py::oracle_geometry and is checked
-// here.  Returns the launch's cudaError.
-extern "C" int oracle_run(const int32_t* table, const int32_t* mem,
-                          int64_t* out, int N, int C, int trip, int B, int M,
-                          int threads, int shared_bytes, int image_shared,
-                          cudaStream_t stream) {
+// One launch over B memories of M words, not waited for: `table` (8N + 2C
+// int32) and `mem` (B, M) int32 on the device; `out` B*M + N*B int64 (the
+// final images, the last iteration's node values [N][B]); `error` set to
+// all ones, then the first (iteration * N + slot) whose address left
+// [0, M).  The geometry comes from kernels/oracle.py::oracle_geometry and
+// is checked here.  Returns the launch's cudaError.
+template <bool kVerdict>
+int launch(const int32_t* table, const int32_t* mem, int64_t* out,
+           unsigned long long* error, int N, int C, int trip, int B, int M,
+           int threads, int shared_bytes, int image_shared,
+           const Verdict& verdict, cudaStream_t stream) {
   const int64_t need =
       4 * (static_cast<int64_t>(kRecord) * N + 2 * C +
            static_cast<int64_t>(N + C) * threads +
@@ -227,14 +325,11 @@ extern "C" int oracle_run(const int32_t* table, const int32_t* mem,
       shared_bytes > kMaxSharedBytes ||
       static_cast<int64_t>(threads) * M > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  int64_t* image = out;
   int64_t* vals = out + static_cast<int64_t>(B) * M;
-  auto* error = reinterpret_cast<unsigned long long*>(
-      vals + static_cast<int64_t>(N) * B);
   const cudaError_t set = cudaMemsetAsync(error, 0xFF, sizeof(*error), stream);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const auto kernel =
-      image_shared ? oracle_kernel<true> : oracle_kernel<false>;
+  const auto kernel = image_shared ? oracle_kernel<true, kVerdict>
+                                   : oracle_kernel<false, kVerdict>;
   static int allowed[2] = {};
   int& allow = allowed[image_shared ? 1 : 0];
   if (shared_bytes > kDefaultSharedBytes && shared_bytes > allow) {
@@ -244,7 +339,41 @@ extern "C" int oracle_run(const int32_t* table, const int32_t* mem,
     allow = shared_bytes;
   }
   const int blocks = (B + threads - 1) / threads;
-  kernel<<<blocks, threads, shared_bytes, stream>>>(table, mem, image, vals,
-                                                    error, N, C, trip, B, M);
+  kernel<<<blocks, threads, shared_bytes, stream>>>(
+      table, mem, out, vals, error, N, C, trip, B, M, verdict);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The oracle: `out` B*M + N*B + 1 int64, the images and node values of
+// launch(), then the error word.
+extern "C" int oracle_run(const int32_t* table, const int32_t* mem,
+                          int64_t* out, int N, int C, int trip, int B, int M,
+                          int threads, int shared_bytes, int image_shared,
+                          cudaStream_t stream) {
+  auto* error = reinterpret_cast<unsigned long long*>(
+      out + static_cast<int64_t>(B) * M + static_cast<int64_t>(N) * B);
+  return launch<false>(table, mem, out, error, N, C, trip, B, M, threads,
+                       shared_bytes, image_shared, Verdict{}, stream);
+}
+
+// The oracle with the verdict epilogue: `out` B*M + N*B int64 as in
+// launch(); `sim_image` (B, M) and `sim_vals` (K, B) int32, the
+// simulator's, and `slots` (K,) int32, each in [0, N); `words` holds B
+// int32 verdict words, padded to an even count, then the 64-bit error
+// word (so `words` is 8-byte aligned).
+extern "C" int oracle_verdict_run(const int32_t* table, const int32_t* mem,
+                                  int64_t* out, const int32_t* sim_image,
+                                  const int32_t* sim_vals,
+                                  const int32_t* slots, int32_t* words, int K,
+                                  int N, int C, int trip, int B, int M,
+                                  int threads, int shared_bytes,
+                                  int image_shared, cudaStream_t stream) {
+  if (K < 0 || K > N || (K > 0 && trip == 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* error = reinterpret_cast<unsigned long long*>(words + ((B + 1) & ~1));
+  return launch<true>(table, mem, out, error, N, C, trip, B, M, threads,
+                      shared_bytes, image_shared,
+                      Verdict{sim_image, sim_vals, slots, words, K}, stream);
 }

@@ -10,8 +10,11 @@ update slot and initial value.  :func:`oracle` runs the table over a
 ``(B, M)`` int32 memory batch on the card and returns what
 :func:`repro_torch.fuzz.engine.batched_oracle` returns, ``({nid: (B,)
 int64}, (B, M) int64)`` of int32-wrapped values, in one launch of
-``oracle_kernel`` and one copy back.  :func:`oracle_ref` is the plain
-PyTorch interpreter of the same table, on any device.
+``oracle_kernel`` and one copy back.  :func:`oracle_verdict` is the same
+launch with the verdict epilogue: it also compares the simulator's final
+images and node values, on the card, with the oracle's, and copies back
+only one verdict word a memory.  :func:`oracle_ref` and
+:func:`oracle_verdict_ref` are the plain PyTorch versions, on any device.
 
 The semantics are those of ``fuzz/engine.py::_batched_interpret`` op for
 op, written from its ``_alu_vec`` and not from the PE array's ALU: the
@@ -28,7 +31,7 @@ port moved it to the card because it set the pace of the fuzz path.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +90,9 @@ class OracleTable:
     #: :meth:`packed` on each device it was asked for
     _on_device: Dict[torch.device, torch.Tensor] = field(
         default_factory=dict, repr=False, compare=False)
+    #: :meth:`slots_on_device`'s copies, by device and slots
+    _slots: Dict[Tuple[torch.device, Tuple[int, ...]], torch.Tensor] = \
+        field(default_factory=dict, repr=False, compare=False)
 
     def packed(self) -> np.ndarray:
         """The table as the kernel reads it, one int32 array: the node
@@ -100,6 +106,15 @@ class OracleTable:
             self._on_device[device] = torch.as_tensor(self.packed(),
                                                       device=device)
         return self._on_device[device]
+
+    def slots_on_device(self, slots: Tuple[int, ...],
+                        device: torch.device) -> torch.Tensor:
+        """``slots`` as int32 on ``device``, copied there once."""
+        key = (device, slots)
+        if key not in self._slots:
+            self._slots[key] = torch.tensor(slots, dtype=torch.int32,
+                                            device=device)
+        return self._slots[key]
 
     def address_error(self, code: int, M: int) -> IndexError:
         """The numpy oracle's error for the access at ``code`` = iteration
@@ -209,12 +224,12 @@ def _alu(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(a)      # ZERO
 
 
-def oracle_ref(table: OracleTable, mems: torch.Tensor
-               ) -> Tuple[Dict[int, np.ndarray], np.ndarray]:
+def _interpret(table: OracleTable, mems: torch.Tensor
+               ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """The plain PyTorch interpreter of ``table`` over a (B, M) integer
     tensor, in int64 on its device: every node of every iteration over the
-    whole batch, in the table's order.  Returns host numpy, as
-    :func:`oracle` does."""
+    whole batch, in the table's order.  Returns the last iteration's (B,)
+    value of each slot and the final (B, M) images."""
     img = _wrap(mems.to(torch.int64)).clone()
     B, M = img.shape
     rows = torch.arange(B, device=img.device)
@@ -254,10 +269,62 @@ def oracle_ref(table: OracleTable, mems: torch.Tensor
                 out = _alu(op, a, b)
             vals[pos] = out
         carry = [vals[u] for u in table.carry_update.tolist()]
+    return vals, img
+
+
+def oracle_ref(table: OracleTable, mems: torch.Tensor
+               ) -> Tuple[Dict[int, np.ndarray], np.ndarray]:
+    """The plain version of :func:`oracle`, on ``mems``' device.  Returns
+    host numpy, as :func:`oracle` does."""
+    vals, img = _interpret(table, mems)
     node_vals = ({nid: vals[pos].cpu().numpy()
                   for pos, nid in enumerate(table.node_ids)}
                  if table.trip > 0 else {})
     return node_vals, img.cpu().numpy()
+
+
+class OracleVerdict(NamedTuple):
+    """What :func:`oracle_verdict` returns.  Only ``bad`` is on the host;
+    the oracle's results stay on the device, for the rows a caller asks
+    about."""
+
+    bad: np.ndarray        # (B,) bool: the memory's result differs
+    image: torch.Tensor    # (B, M) int64, the oracle's final images
+    vals: torch.Tensor     # (N, B) int64, last-iteration value a slot
+
+
+def _slot_list(table: OracleTable, sim_vals: torch.Tensor,
+               sim_slots: Sequence[int]) -> Tuple[int, ...]:
+    """``sim_slots`` checked against ``sim_vals`` (K, B) and the table;
+    none where the trip is 0, whose oracle has no node values."""
+    slots = tuple(int(s) for s in sim_slots)
+    if sim_vals.dim() != 2 or sim_vals.shape[0] != len(slots):
+        raise ValueError(f"sim_vals: expected ({len(slots)}, B) for "
+                         f"{len(slots)} slots, got {tuple(sim_vals.shape)}")
+    N = len(table.node_ids)
+    if any(not 0 <= s < N for s in slots):
+        raise ValueError(f"sim_slots: a slot outside [0, {N})")
+    return slots if table.trip > 0 else ()
+
+
+def oracle_verdict_ref(table: OracleTable, mems: torch.Tensor,
+                       sim_image: torch.Tensor, sim_vals: torch.Tensor,
+                       sim_slots: Sequence[int]) -> OracleVerdict:
+    """The plain version of :func:`oracle_verdict`, on ``mems``' device:
+    :func:`oracle_ref`'s interpreter, then each memory's low 32 bits
+    compared with the simulator's, as ``fuzz.engine.compare_batch``
+    compares them."""
+    slots = _slot_list(table, sim_vals, sim_slots)
+    vals, img = _interpret(table, mems)
+    sim_vals = sim_vals.to(img.device, torch.int64) & _M32
+    bad = ((sim_image.to(img.device, torch.int64) & _M32)
+           != (img & _M32)).any(dim=1)
+    for k, slot in enumerate(slots):
+        bad |= sim_vals[k] != (vals[slot] & _M32)
+    N, B = len(vals), img.shape[0]
+    per_slot = (torch.stack(vals) if N else
+                torch.empty((0, B), dtype=torch.int64, device=img.device))
+    return OracleVerdict(bad.cpu().numpy(), img, per_slot)
 
 
 # ---------------------------------------------------------------------------
@@ -290,6 +357,74 @@ def oracle_geometry(N: int, C: int, M: int) -> Tuple[int, int, int]:
     return T, shared(T, image), int(image)
 
 
+def _check_operand(what: str, x: torch.Tensor, device: torch.device,
+                   shape: Tuple[int, int]) -> None:
+    if x.dtype != torch.int32 or tuple(x.shape) != shape \
+            or not x.is_contiguous() or x.device != device:
+        raise ValueError(f"{what}: expected a contiguous {shape} int32 "
+                         f"tensor on {device}, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
+def enqueue(table: OracleTable, mems: torch.Tensor, sim=None
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One ``oracle_kernel`` launch over ``mems``, not waited for:
+    :func:`oracle`'s launch, or with ``sim = (sim_image, sim_vals,
+    sim_slots)`` :func:`oracle_verdict`'s.  Returns the device
+    buffer (the images, the node values, and without ``sim`` the error
+    word) and, with ``sim``, the verdict words followed by the error word,
+    both set for an empty batch without a launch.  ``oracle.launches``
+    counts every launch, ``oracle.verdicts`` those with the epilogue."""
+    device = mems.device
+    if device.type != "cuda":
+        raise ValueError(f"oracle runs on a CUDA device, not {device}; "
+                         f"oracle_ref is the plain version")
+    if mems.dtype != torch.int32 or mems.dim() != 2 \
+            or not mems.is_contiguous():
+        raise ValueError(f"mems: expected a contiguous (B, M) int32 tensor, "
+                         f"got {mems.dtype} {tuple(mems.shape)}")
+    B, M = mems.shape
+    N, C = table.nodes.shape[0], table.carry_update.shape[0]
+    threads, shared, image = oracle_geometry(N, C, M)
+    lib = build.oracle_library()
+    if sim is None:
+        out = torch.empty(B * M + N * B + 1, dtype=torch.int64,
+                          device=device)
+        if not B:
+            out[-1] = NO_ERROR
+            return out, None
+        status = lib.oracle_run(
+            table.on_device(device).data_ptr(), mems.data_ptr(),
+            out.data_ptr(), N, C, table.trip, B, M, threads, shared, image,
+            _stream(device))
+        words = None
+    else:
+        sim_image, sim_vals, slots = sim
+        slots = _slot_list(table, sim_vals, slots)
+        if not slots:
+            sim_vals = sim_vals[:0]
+        _check_operand("sim_image", sim_image, device, (B, M))
+        _check_operand("sim_vals", sim_vals, device, (len(slots), B))
+        out = torch.empty(B * M + N * B, dtype=torch.int64, device=device)
+        pad = B + (B & 1)
+        words = torch.empty(pad + 2, dtype=torch.int32, device=device)
+        if not B:
+            words[pad:] = NO_ERROR
+            return out, words
+        status = lib.oracle_verdict_run(
+            table.on_device(device).data_ptr(), mems.data_ptr(),
+            out.data_ptr(), sim_image.data_ptr(), sim_vals.data_ptr(),
+            table.slots_on_device(slots, device).data_ptr(),
+            words.data_ptr(), len(slots), N, C, table.trip, B, M, threads,
+            shared, image, _stream(device))
+    if status != 0:
+        raise RuntimeError(f"oracle launch failed: cudaError {status}")
+    oracle.launches += 1
+    if sim is not None:
+        oracle.verdicts += 1
+    return out, words
+
+
 def oracle(table: OracleTable, mems: torch.Tensor
            ) -> Tuple[Dict[int, np.ndarray], np.ndarray]:
     """The oracle of ``table`` over ``mems``, a contiguous (B, M) int32
@@ -304,32 +439,12 @@ def oracle(table: OracleTable, mems: torch.Tensor
     (iteration, node order).  ``mems`` must be on a CUDA device: there is
     no fallback (:func:`oracle_ref` is the plain version).
     ``oracle.launches`` counts the launches."""
-    device = mems.device
-    if device.type != "cuda":
-        raise ValueError(f"oracle runs on a CUDA device, not {device}; "
-                         f"oracle_ref is the plain version")
-    if mems.dtype != torch.int32 or mems.dim() != 2 \
-            or not mems.is_contiguous():
-        raise ValueError(f"mems: expected a contiguous (B, M) int32 tensor, "
-                         f"got {mems.dtype} {tuple(mems.shape)}")
+    out, _ = enqueue(table, mems)
     B, M = mems.shape
-    N, C = table.nodes.shape[0], table.carry_update.shape[0]
-    threads, shared, image = oracle_geometry(N, C, M)
-    out = torch.empty(B * M + N * B + 1, dtype=torch.int64, device=device)
-    if B:
-        status = build.oracle_library().oracle_run(
-            table.on_device(device).data_ptr(), mems.data_ptr(),
-            out.data_ptr(), N, C, table.trip, B, M, threads, shared, image,
-            _stream(device))
-        if status != 0:
-            raise RuntimeError(f"oracle_run launch failed: cudaError "
-                               f"{status}")
-        oracle.launches += 1
-    else:
-        out[-1] = NO_ERROR
+    N = table.nodes.shape[0]
     host = torch.empty(out.shape, dtype=torch.int64, pin_memory=True)
     host.copy_(out, non_blocking=True)
-    torch.cuda.current_stream(device).synchronize()
+    torch.cuda.current_stream(mems.device).synchronize()
     flat = host.numpy()
     if flat[-1] != NO_ERROR:
         raise table.address_error(int(flat[-1]), M)
@@ -341,4 +456,38 @@ def oracle(table: OracleTable, mems: torch.Tensor
     return node_vals, final
 
 
+def oracle_verdict(table: OracleTable, mems: torch.Tensor,
+                   sim_image: torch.Tensor, sim_vals: torch.Tensor,
+                   sim_slots: Sequence[int]) -> OracleVerdict:
+    """:func:`oracle` over ``mems`` with the simulator's result compared
+    on the card: ``sim_image`` (B, M) int32, its final images, and
+    ``sim_vals`` (K, B) int32, its last-iteration values of the nodes at
+    table slots ``sim_slots``, both contiguous on ``mems``' device.  A
+    memory is bad where an image word or one of those node values differs
+    from the oracle's in its low 32 bits, as in
+    ``fuzz.engine.compare_batch``; where the trip is 0 only the images are
+    compared, as the oracle has no node values then.
+
+    One launch with the verdict epilogue, one copy of the (B,) verdict
+    words and the error word into pinned host memory and one wait; the
+    oracle's images and node values stay on the device, in the returned
+    :class:`OracleVerdict`.  An address outside ``[0, M)`` raises
+    :func:`oracle`'s ``IndexError``.  ``oracle.verdicts`` counts these
+    launches (``oracle.launches`` too)."""
+    out, words = enqueue(table, mems, (sim_image, sim_vals, sim_slots))
+    B, M = mems.shape
+    N = table.nodes.shape[0]
+    host = torch.empty(words.shape, dtype=torch.int32, pin_memory=True)
+    host.copy_(words, non_blocking=True)
+    torch.cuda.current_stream(mems.device).synchronize()
+    flat = host.numpy()
+    pad = B + (B & 1)
+    error = int(flat[pad:].view(np.int64)[0])
+    if error != NO_ERROR:
+        raise table.address_error(error, M)
+    return OracleVerdict(flat[:B] != 0, out[:B * M].view(B, M),
+                         out[B * M:].view(N, B))
+
+
 oracle.launches = 0
+oracle.verdicts = 0

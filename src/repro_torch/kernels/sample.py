@@ -1,7 +1,8 @@
 """Seeded random instruction rows and PE-array states for holding the
 PE-array kernels against their plain versions (tests and ``chip_smoke.py``),
-hazard programs aimed at the row scheme of ``run_cycles_kernel``, and CIL
-programs and memories for holding the oracle kernel to its plain version.
+hazard programs aimed at the row scheme of ``run_cycles_kernel``, CIL
+programs and memories for holding the oracle kernel to its plain version,
+and simulator results with planted differences for its verdict.
 
 Programs are collision-free: two stores to one address in one cycle are
 undefined behaviour, so a row holds either SWI stores to distinct
@@ -9,7 +10,7 @@ addresses or exactly one SWD store.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable, Tuple
 
 import numpy as np
 
@@ -276,3 +277,33 @@ def first_error_case(builder):
     mems[1, 2] = 99
     mems[4, 5] = -3
     return p, mems, "first_error: node 5 (LWD) address outside [0, 8)"
+
+
+#: what :func:`verdict_case` plants
+VERDICT_FAULTS = ("neither", "image", "nodes", "both")
+
+
+def verdict_case(oracle_vals: Dict[int, np.ndarray], oracle_mem: np.ndarray,
+                 fault: str, rows: Iterable[int]
+                 ) -> Tuple[Dict[int, np.ndarray], np.ndarray]:
+    """A simulator's result for holding a verdict to
+    ``fuzz.engine.compare_batch``: the oracle's own (``oracle_vals`` {nid:
+    (B,)} and ``oracle_mem`` (B, M), as ``batched_oracle`` returns them)
+    as int32, every other node in reverse order, with one bit flipped
+    where ``fault`` says: an image word in each of ``rows`` (``image``), a
+    node value in each row five past one of them (``nodes``), both, or
+    neither.  Returns (sim node values, sim images)."""
+    if fault not in VERDICT_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}; expected one of "
+                         f"{VERDICT_FAULTS}")
+    B, M = oracle_mem.shape
+    mem = np.array(oracle_mem, np.int64).astype(np.int32)
+    nodes = list(oracle_vals)[::-2]
+    vals = {n: np.broadcast_to(oracle_vals[n], (B,)).astype(np.int32)
+            for n in nodes}
+    for r in sorted({r for r in rows if 0 <= r < B}):
+        if fault in ("image", "both"):
+            mem[r, (r * 31) % M] ^= 1 << (r % 31)
+        if fault in ("nodes", "both") and nodes:
+            vals[nodes[r % len(nodes)]][(r + 5) % B] ^= 1 << (r % 31)
+    return vals, mem

@@ -1,6 +1,7 @@
 """The CUDA kernels (the whole-program run, single and stacked, the
 cycle step, its one-row launch, and the fuzz oracle) against their plain
-PyTorch versions (the oracle also against the numpy oracle), and
+PyTorch versions (the oracle also against the numpy oracle, its verdict
+epilogue against ``compare_batch``), and
 the fuzz path's stacked run, activity harvest and triage, a kernel the
 port mapped itself, and the
 traced front-end's co-simulation, swept points of the size ladder, a
@@ -29,18 +30,19 @@ from repro_torch.convert import fields_from_numpy, state_from_numpy  # noqa: E40
 from repro_torch.core.mapper import MapperConfig  # noqa: E402
 from repro_torch.fuzz.corpus import make_corpus  # noqa: E402
 from repro_torch.fuzz.activity import ActivityAccumulator  # noqa: E402
-from repro_torch.fuzz.engine import (batched_oracle, fuzz_kernel,  # noqa: E402
-                                     fuzz_program, fuzz_stacked, run_stacked)
+from repro_torch.fuzz.engine import (  # noqa: E402
+    batched_oracle, compare_batch, fuzz_kernel, fuzz_program, fuzz_stacked,
+    run_stacked)
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.cgra.isa import OPCODE  # noqa: E402
 from repro_torch.kernels.pe_array import (  # noqa: E402
     LANE_LAYOUT, UNIFORM_LAYOUT, cycle_step, lanes_fit, run_cycles)
-from repro_torch.kernels.oracle import (compile_oracle, oracle,  # noqa: E402
-                                        oracle_ref)
+from repro_torch.kernels.oracle import (  # noqa: E402
+    compile_oracle, oracle, oracle_ref, oracle_verdict, oracle_verdict_ref)
 from repro_torch.kernels.sample import (  # noqa: E402
-    HAZARDS, OUT_OF_RANGE, first_error_case, hazard_fields, oracle_edge_mems,
-    oracle_edges, out_of_range_program, random_fields, random_state,
-    tiled_corpus)
+    HAZARDS, OUT_OF_RANGE, VERDICT_FAULTS, first_error_case, hazard_fields,
+    oracle_edge_mems, oracle_edges, out_of_range_program, random_fields,
+    random_state, tiled_corpus, verdict_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -899,3 +901,166 @@ def test_fuzz_program_verdicts_equal_with_the_oracle_kernel(
     spans = [r for r in report.load(str(tmp_path / "trace"))
              if r["k"] == "span" and r["name"] == "fuzz.oracle"]
     assert [s["attrs"] for s in spans] == [{"backend": "cuda"}] * 3
+
+
+def _compare_attrs(trace_dir):
+    from repro_torch.obs import report
+
+    return [r["attrs"] for r in report.load(str(trace_dir))
+            if r["k"] == "span" and r["name"] == "fuzz.compare"]
+
+
+# ---------------------------------------------------------------------------
+# the oracle kernel's verdict epilogue against compare_batch, and the fuzz
+# path that copies back only the verdict and the failing rows
+# ---------------------------------------------------------------------------
+
+
+def _verdict_on_card(cuda, table, mems, vals, sim_mem):
+    nodes = [n for n in vals if n in table.node_ids]
+    slots = [table.node_ids.index(n) for n in nodes]
+    sim = torch.as_tensor(
+        np.stack([vals[n] for n in nodes]) if nodes
+        else np.zeros((0, len(mems)), np.int32), device=cuda)
+    got = oracle_verdict(table, torch.as_tensor(mems, device=cuda),
+                         torch.as_tensor(sim_mem, device=cuda), sim, slots)
+    ref = oracle_verdict_ref(table, torch.as_tensor(mems),
+                             torch.as_tensor(sim_mem), sim.cpu(), slots)
+    return got, ref, nodes, slots
+
+
+@pytest.mark.parametrize("fault", VERDICT_FAULTS)
+@pytest.mark.parametrize("B,M", [(1000, 128), (16384, 128), (1000, 2048),
+                                 (33, 4096)])
+def test_oracle_verdict_matches_compare_batch(cuda, fault, B, M):
+    """Differences in image words, node values, both or neither, at the
+    edges of a block's 32 rows; M = 128 keeps the images in shared memory,
+    M = 2048 and 4096 in device memory; B = 1000 and 33 are no multiple of
+    32."""
+    from repro_torch.cgra.programs import LoopBuilder
+
+    program = oracle_edges(LoopBuilder)
+    table = compile_oracle(program)
+    mems = oracle_edge_mems(B, M, seed=B + M)
+    ov, om = batched_oracle(program, mems)
+    vals, sim_mem = verdict_case(ov, om, fault,
+                                 {0, 31, 32, 33, B // 2, B - 2, B - 1})
+    before = (oracle.launches, oracle.verdicts)
+    got, ref, nodes, slots = _verdict_on_card(cuda, table, mems, vals,
+                                              sim_mem)
+    assert (oracle.launches, oracle.verdicts) == (before[0] + 1,
+                                                  before[1] + 1)
+    np.testing.assert_array_equal(got.bad, compare_batch(vals, sim_mem, ov,
+                                                         om))
+    np.testing.assert_array_equal(got.bad, ref.bad)
+    assert got.bad.any() == (fault != "neither")
+    np.testing.assert_array_equal(got.image.cpu().numpy(), om)
+    for n, slot in zip(nodes, slots):
+        np.testing.assert_array_equal(got.vals[slot].cpu().numpy(), ov[n])
+
+
+@pytest.mark.parametrize("fault", VERDICT_FAULTS)
+@pytest.mark.parametrize("M", [128, 2048])
+def test_oracle_verdict_at_trip_0_compares_the_image_only(cuda, fault, M):
+    from repro_torch.cgra.programs import LoopBuilder
+
+    program = oracle_edges(LoopBuilder, trip=0)
+    table = compile_oracle(program)
+    mems = oracle_edge_mems(100, M, seed=M)
+    ov, om = batched_oracle(program, mems)
+    _, sim_mem = verdict_case(ov, om, fault, range(0, 100, 11))
+    sim_vals = {n: np.full(100, 9, np.int32) for n in table.node_ids[:4]}
+    got, ref, _, _ = _verdict_on_card(cuda, table, mems, sim_vals, sim_mem)
+    np.testing.assert_array_equal(got.bad, compare_batch(sim_vals, sim_mem,
+                                                         ov, om))
+    np.testing.assert_array_equal(got.bad, ref.bad)
+    assert got.bad.any() == (fault in ("image", "both"))
+
+
+@pytest.mark.parametrize("arch,kernel", SHIPPED_ARTIFACTS)
+def test_oracle_verdict_on_every_shipped_artifact(cuda, arch, kernel):
+    art = load_artifact(arch, kernel)
+    for B in (1000, 16384):
+        mems = tiled_corpus(art, B)
+        ov, om = batched_oracle(art.program, mems)
+        for fault in ("neither", "both"):
+            vals, sim_mem = verdict_case(ov, om, fault, range(0, B, 97))
+            got, _, _, _ = _verdict_on_card(cuda, art.oracle_table, mems,
+                                            vals, sim_mem)
+            np.testing.assert_array_equal(
+                got.bad, compare_batch(vals, sim_mem, ov, om),
+                f"{fault} B={B}")
+
+
+@pytest.mark.parametrize("kind", OUT_OF_RANGE)
+def test_oracle_verdict_raises_the_numpy_address_error(cuda, kind):
+    from repro_torch.cgra.programs import LoopBuilder
+
+    M = 16
+    mems = np.tile(np.arange(M, dtype=np.int32) % 8, (6, 1))
+    mems[3, 2] = M + 5
+    mems[5, 1] = -1
+    program = out_of_range_program(LoopBuilder, kind, M)
+    with pytest.raises(IndexError) as want:
+        batched_oracle(program, mems)
+    dev = torch.as_tensor(mems, device=cuda)
+    with pytest.raises(IndexError) as got:
+        oracle_verdict(compile_oracle(program), dev, dev,
+                       torch.zeros((0, 6), dtype=torch.int32, device=cuda),
+                       [])
+    assert str(got.value) == str(want.value)
+
+
+def test_oracle_verdict_takes_an_empty_batch_and_refuses_bad_operands(cuda):
+    table = load_artifact("4x4", "gsm").oracle_table
+    empty = torch.zeros((0, 128), dtype=torch.int32, device=cuda)
+    before = oracle.verdicts
+    got = oracle_verdict(table, empty, empty,
+                         torch.zeros((1, 0), dtype=torch.int32, device=cuda),
+                         [0])
+    assert got.bad.shape == (0,) and oracle.verdicts == before
+    mems = torch.zeros((4, 128), dtype=torch.int32, device=cuda)
+    vals = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="sim_image"):
+        oracle_verdict(table, mems, mems[:, :64].contiguous(), vals, [0])
+    with pytest.raises(ValueError, match="sim_image"):
+        oracle_verdict(table, mems, mems.cpu(), vals, [0])
+    with pytest.raises(ValueError, match="sim_vals"):
+        oracle_verdict(table, mems, mems, vals.to(torch.int64), [0])
+    with pytest.raises(ValueError, match="slot outside"):
+        oracle_verdict(table, mems, mems, vals, [len(table.node_ids)])
+
+
+@pytest.mark.parametrize("fault", [False, True], ids=["clean", "fault"])
+@pytest.mark.parametrize("arch,kernel", [("4x4", "gsm"), ("4x4", "fir4"),
+                                         ("3x3", "sqrt")])
+def test_fuzz_program_copies_back_only_the_failing_rows(cuda, tmp_path, arch,
+                                                        kernel, fault):
+    """Two chunks: one verdict launch each, a ``fuzz.compare`` span each
+    with backend ``cuda``; no row copied back when clean, at most the
+    sample's cap when faulted; failing memories, mismatch lines and
+    activity equal to the CPU path's."""
+    from repro_torch.fuzz.engine import _MISMATCH_SAMPLE_CAP
+    from repro_torch.obs import trace as obs_trace
+
+    art = load_artifact(arch, kernel)
+    if fault:
+        art = _faulty(art)
+    mems = make_corpus(art, 2048, seed=8)
+    cpu = fuzz_program(art, mems, batch=1024, device="cpu")
+    before = oracle.verdicts
+    obs_trace.enable(str(tmp_path / "trace"))
+    try:
+        card = fuzz_program(art, mems, batch=1024, device=cuda)
+    finally:
+        obs_trace.disable()
+    assert oracle.verdicts - before == 2
+    assert (card.status, card.failing, card.mismatches, card.activity) == (
+        cpu.status, cpu.failing, cpu.mismatches, cpu.activity)
+    attrs = _compare_attrs(tmp_path / "trace")
+    assert [a["backend"] for a in attrs] == ["cuda"] * 2
+    rows_back = sum(a["rows_back"] for a in attrs)
+    if fault:
+        assert card.failing and 0 < rows_back <= _MISMATCH_SAMPLE_CAP
+    else:
+        assert not card.failing and rows_back == 0

@@ -2,7 +2,9 @@
 oracle, fuzz verdicts, mismatch strings and switching activity (also under
 an injected fault), ``fuzz_kernel`` mapping live (mapped and unmapped
 kernels), and the CLI digest with activity and energy, also with
-``--shrink``.  Everything runs on the CPU with exact equality.
+``--shrink``; and the card path's assembly of mismatch lines from the
+failing rows alone, on CPU tensors, against the full-batch path.
+Everything runs on the CPU with exact equality.
 """
 import dataclasses
 import json
@@ -15,7 +17,8 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
-pytest.importorskip("torch", reason="optional extra: pip install .[torch]")
+torch = pytest.importorskip("torch",
+                            reason="optional extra: pip install .[torch]")
 pytest.importorskip("jax", reason="optional extra: pip install .[jax]")
 
 from repro.cgra.registry import kernel_program  # noqa: E402
@@ -26,7 +29,10 @@ from repro.fuzz.triage import inject_fault, triage_failure  # noqa: E402
 from repro_torch.cgra import artifact as port_artifact  # noqa: E402
 from repro_torch.cgra.artifact import load_artifact  # noqa: E402
 from repro_torch.convert import artifact_from_parts  # noqa: E402
+from repro_torch.cgra.simulator import execute_asm  # noqa: E402
 from repro_torch.fuzz import cli, corpus, engine  # noqa: E402
+from repro_torch.fuzz.triage import inject_fault as port_inject  # noqa: E402
+from repro_torch.kernels.oracle import oracle_verdict_ref  # noqa: E402
 from torch_parity import SHIPPED, jax_asm, jax_grid  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -233,3 +239,74 @@ def test_fuzz_kernel_reports_an_unmapped_kernel_as_jax_does():
         assert got.pop(key) == 0.0 and key not in want
     assert got == want
     assert rep.status == "unmapped"
+
+
+@pytest.mark.parametrize("fault", [False, True], ids=["clean", "fault"])
+@pytest.mark.parametrize("arch,kernel", VERDICT_KERNELS)
+@pytest.mark.parametrize("lo,before", [(0, 0), (4096, 5)])
+def test_failing_rows_give_the_full_batch_mismatch_lines(arch, kernel, fault,
+                                                         lo, before):
+    """What the card path copies back and builds, on CPU tensors: the
+    verdict mask of ``oracle_verdict_ref`` equals ``compare_batch``, and
+    the mismatch lines built from the failing rows alone equal the
+    full-batch path's, for a chunk at corpus index ``lo`` and a sample
+    that already holds ``before`` lines; at most the sample's cap of rows
+    comes back."""
+    art = load_artifact(arch, kernel)
+    if fault:
+        art = dataclasses.replace(art, asm=port_inject(art.asm)[0])
+    mems = corpus.make_corpus(art, 200, seed=6)
+    final, outs, _ = execute_asm(art.asm, art.grid, mems, batch=200,
+                                 device="cpu")
+    program = art.program
+    sim_vals = engine.node_values_from_outs(art.asm, outs, program.trip)
+    sim_mem = final.mem.numpy()
+    ov, om = engine.batched_oracle(program, mems)
+    bad = engine.compare_batch(sim_vals, sim_mem, ov, om)
+    want = ["earlier line"] * before
+    for i in np.nonzero(bad)[0]:
+        if len(want) < engine._MISMATCH_SAMPLE_CAP:
+            want.extend(engine.mismatch_strings(
+                program, sim_vals, sim_mem, ov, om, int(i), label=lo + int(i)
+            )[:engine._MISMATCH_SAMPLE_CAP])
+
+    table = art.oracle_table
+    slot_of = {n: i for i, n in enumerate(table.node_ids)}
+    nodes, ts, pes = engine.last_cells(art.asm, program.trip, keep=slot_of)
+    slots = [slot_of[n] for n in nodes]
+    sim = outs[torch.tensor(ts), :, torch.tensor(pes)].contiguous()
+    verdict = oracle_verdict_ref(table, torch.as_tensor(mems), final.mem,
+                                 sim, slots)
+    np.testing.assert_array_equal(verdict.bad, bad)
+    got = ["earlier line"] * before
+    back = engine.failing_row_mismatches(
+        program, nodes, slots, sim, final.mem, verdict,
+        np.nonzero(verdict.bad)[0], lo, got)
+    assert got == want
+    assert bad.any() == fault
+    assert back <= engine._MISMATCH_SAMPLE_CAP - before
+    assert (back > 0) == fault
+
+
+def test_last_cells_keep_the_dict_order_of_the_trace_gather():
+    """One cell a node, in the order and with the values of
+    ``node_values_from_outs``'s dict, also where a node holds two cells."""
+    art = load_artifact("4x4", "gsm")
+    asm = dataclasses.replace(art.asm, node_of_cell=dict(
+        art.asm.node_of_cell))
+    n0, j0 = next(v for v in asm.node_of_cell.values()
+                  if v[1] == art.program.trip - 1)
+    spare = next((t, p) for t in range(asm.total_rows)
+                 for p in range(art.grid.num_pes)
+                 if (t, p) not in asm.node_of_cell)
+    asm.node_of_cell[spare] = (n0, j0)         # n0 held twice, later here
+    outs = torch.arange(asm.total_rows * 3 * art.grid.num_pes,
+                        dtype=torch.int32).view(asm.total_rows, 3, -1)
+    nodes, ts, pes = engine.last_cells(asm, art.program.trip)
+    vals = engine.node_values_from_outs(asm, outs, art.program.trip)
+    assert list(vals) == list(nodes)
+    assert (ts[nodes.index(n0)], pes[nodes.index(n0)]) == spare
+    for n, t, pe in zip(nodes, ts, pes):
+        np.testing.assert_array_equal(vals[n], outs[t, :, pe].numpy())
+    kept = engine.last_cells(asm, art.program.trip, keep={n0})
+    assert kept == ((n0,), (spare[0],), (spare[1],))

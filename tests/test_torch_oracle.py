@@ -5,9 +5,11 @@ kernel's corpora and on hand-built programs that reach what no shipped
 kernel may (wide FXPMUL products, shift amounts past 31 and negative, SRT
 of negative words, BSFA / BZFA on zero and negative flags); the address
 error's text; the refusal of constants beyond 32 bits; the launch shape;
-and ``fuzz_program``'s oracle span on the CPU.  Everything runs on the
-CPU with exact equality; the kernel itself is held to ``oracle_ref`` on
-the card by ``tests/test_torch_cuda.py``.
+``fuzz_program``'s oracle span on the CPU; and ``oracle_verdict_ref``
+against ``compare_batch`` with differences planted in the images, the
+node values, both or neither.  Everything runs on the CPU with exact
+equality; the kernel itself is held to ``oracle_ref`` and
+``compare_batch`` on the card by ``tests/test_torch_cuda.py``.
 """
 import json
 from pathlib import Path
@@ -29,8 +31,8 @@ from repro_torch.fuzz import engine  # noqa: E402
 from repro_torch.fuzz.corpus import make_corpus  # noqa: E402
 from repro_torch.kernels import oracle as ko  # noqa: E402
 from repro_torch.kernels.sample import (  # noqa: E402
-    OUT_OF_RANGE, first_error_case, oracle_edge_mems, oracle_edges,
-    out_of_range_program)
+    OUT_OF_RANGE, VERDICT_FAULTS, first_error_case, oracle_edge_mems,
+    oracle_edges, out_of_range_program, verdict_case)
 from repro_torch.obs import report  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from torch_parity import SHIPPED  # noqa: E402
@@ -264,3 +266,103 @@ def test_fuzz_program_oracle_span_names_its_backend(tmp_path):
     spans = [r for r in report.load(str(tmp_path / "trace"))
              if r["k"] == "span" and r["name"] == "fuzz.oracle"]
     assert [s["attrs"] for s in spans] == [{"backend": "numpy"}] * 2
+
+
+def _verdict_operands(table, vals):
+    """(nodes, slots, (K, B) tensor) of a simulator's {nid: (B,)}."""
+    nodes = [n for n in vals if n in table.node_ids]
+    slots = [table.node_ids.index(n) for n in nodes]
+    sim = (np.stack([vals[n] for n in nodes]) if nodes
+           else np.zeros((0, len(next(iter(vals.values()), []))), np.int32))
+    return nodes, slots, torch.as_tensor(sim)
+
+
+def _edge_rows(B, M):
+    """Rows at the edges of a block of 32 and of ``compare_batch``'s row
+    blocks, and the middle one."""
+    rows = max(1, engine.COMPARE_WORDS // M)
+    return {0, 31, 32, rows - 1, rows, 2 * rows, B // 2, B - 1}
+
+
+@pytest.mark.parametrize("fault", VERDICT_FAULTS)
+@pytest.mark.parametrize("B,M", [(1000, 32), (1025, 128), (2100, 128),
+                                 (5, 200_000)])
+def test_verdict_ref_matches_compare_batch(fault, B, M):
+    """Differences at the edges of 32-row blocks and of ``compare_batch``'s
+    1 MB row blocks; B = 1000 is no multiple of 32; at M = 200,000 every
+    row is a block of its own."""
+    program = oracle_edges(programs.LoopBuilder)
+    table = ko.compile_oracle(program)
+    mems = oracle_edge_mems(B, M, seed=B + M)
+    ov, om = engine.batched_oracle(program, mems)
+    vals, sim_mem = verdict_case(ov, om, fault, _edge_rows(B, M))
+    nodes, slots, sim = _verdict_operands(table, vals)
+    got = ko.oracle_verdict_ref(table, torch.as_tensor(mems),
+                                torch.as_tensor(sim_mem), sim, slots)
+    want = engine.compare_batch(vals, sim_mem, ov, om)
+    np.testing.assert_array_equal(got.bad, want)
+    assert got.bad.any() == (fault != "neither")
+    assert got.bad.dtype == bool and got.bad.shape == (B,)
+    np.testing.assert_array_equal(got.image.numpy(), om)
+    for n, slot in zip(nodes, slots):
+        np.testing.assert_array_equal(got.vals[slot].numpy(), ov[n])
+
+
+@pytest.mark.parametrize("fault", VERDICT_FAULTS)
+def test_verdict_ref_compares_only_the_image_at_trip_0(fault):
+    """At trip 0 the oracle has no node values: the simulator's are not
+    compared, as ``compare_batch`` skips a node the oracle lacks."""
+    program = oracle_edges(programs.LoopBuilder, trip=0)
+    table = ko.compile_oracle(program)
+    mems = oracle_edge_mems(70, 32, seed=3)
+    ov, om = engine.batched_oracle(program, mems)
+    assert ov == {}
+    sim_vals = {n: np.full(70, 7, np.int32) for n in table.node_ids[:3]}
+    _, sim_mem = verdict_case({}, om, fault, range(0, 70, 9))
+    sim = torch.as_tensor(np.stack(list(sim_vals.values())))
+    got = ko.oracle_verdict_ref(table, torch.as_tensor(mems),
+                                torch.as_tensor(sim_mem), sim, [0, 1, 2])
+    want = engine.compare_batch(sim_vals, sim_mem, ov, om)
+    np.testing.assert_array_equal(got.bad, want)
+    assert got.bad.any() == (fault in ("image", "both"))
+
+
+@pytest.mark.parametrize("arch,kernel", [("4x4", "gsm"), ("4x4", "fir4"),
+                                         ("3x3", "sqrt")])
+def test_verdict_ref_on_shipped_kernels(arch, kernel):
+    art = load_artifact(arch, kernel)
+    table = art.oracle_table
+    mems = make_corpus(art, 100, seed=5)
+    ov, om = engine.batched_oracle(art.program, mems)
+    for fault in VERDICT_FAULTS:
+        vals, sim_mem = verdict_case(ov, om, fault, range(0, 100, 7))
+        _, slots, sim = _verdict_operands(table, vals)
+        got = ko.oracle_verdict_ref(table, torch.as_tensor(mems),
+                                    torch.as_tensor(sim_mem), sim, slots)
+        np.testing.assert_array_equal(
+            got.bad, engine.compare_batch(vals, sim_mem, ov, om), fault)
+
+
+def test_verdict_ref_raises_the_address_error():
+    p, mems, text = first_error_case(programs.LoopBuilder)
+    table = ko.compile_oracle(p)
+    with pytest.raises(IndexError) as got:
+        ko.oracle_verdict_ref(table, torch.as_tensor(mems),
+                              torch.as_tensor(mems),
+                              torch.zeros((0, 6), dtype=torch.int32), [])
+    assert str(got.value) == text
+
+
+def test_verdict_operands_are_checked():
+    table = load_artifact("4x4", "gsm").oracle_table
+    mems = torch.zeros((4, 128), dtype=torch.int32)
+    vals = torch.zeros((2, 4), dtype=torch.int32)
+    N = len(table.node_ids)
+    with pytest.raises(ValueError, match="slot outside"):
+        ko.oracle_verdict_ref(table, mems, mems, vals, [0, N])
+    with pytest.raises(ValueError, match=r"expected \(1, B\)"):
+        ko.oracle_verdict_ref(table, mems, mems, vals, [0])
+    before = (ko.oracle.launches, ko.oracle.verdicts)
+    with pytest.raises(ValueError, match="oracle_ref"):
+        ko.oracle_verdict(table, mems, mems, vals, [0, 1])
+    assert (ko.oracle.launches, ko.oracle.verdicts) == before
