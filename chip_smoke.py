@@ -62,8 +62,8 @@ per line:
    must launch once per batch chunk, in the lane layout, the oracle
    kernel once per chunk, and the cycle step never;
    b. the stacked main path: ``fuzz_stacked`` on the 15 4x4 artifacts x
-      2048 seed-0 memories, one launch in the uniform layout, every
-      verdict ``ok`` and its
+      2048 seed-0 memories, one launch in the uniform layout and one
+      oracle launch a kernel, every verdict ``ok`` and its
       failing memories equal to phase 4's and to ``stacked_failing`` in
       ``results/BENCH_fuzz.json``;
    c. activity and energy: every phase 4 report carries both; for gsm,
@@ -72,7 +72,8 @@ per line:
    d. triage on the card: gsm with an injected fault over 2048 memories
       gives the CPU run's verdicts, shrinks to the same memory and
       divergence, and writes the CPU run's reproducer apart from
-      ``backend`` (under ``build/``);
+      ``backend`` (under ``build/``); one oracle launch a chunk, a probe
+      of the shrinking and the reproducer's memory;
    e. the main path again through its cache: 16 hits, each artifact
       equal to the cold pass's, status, failing memories, activity and
       energy equal; cold and warm seconds and their mapping seconds;
@@ -86,14 +87,17 @@ per line:
    whole-program launch and one oracle launch a chunk), and one
    main-path run of gsm under ``torch.profiler`` (device busy and idle
    share, the kernel's device time per launch); then the oracle phase:
-   the oracle kernel on every shipped artifact at B in {1024, 16384}
-   against its plain version on the card and the numpy oracle, node
-   values and images bit-equal, and on gsm its device time per launch,
-   the whole call at the host's pace, its plain version, the numpy
-   oracle and its bound; then the verdict epilogue on every shipped
-   artifact at the same B, its mask equal to ``compare_batch``'s with
-   differences planted and without, and its launch timed beside the plain
-   launch in turns by CUDA events: the epilogue's device us per launch;
+   the oracle kernel (``oracle_verdict``, its one mode) on every shipped
+   artifact at B in {1024, 16384}, its images and node values bit-equal
+   to its plain version on the card and the numpy oracle; then its
+   verdict on every shipped artifact at the same B, its mask equal to
+   ``compare_batch``'s with differences planted and without, and its
+   launch timed by CUDA events (with ``--parent`` in turns with the
+   parent's launches; where the parent's package still has the launch
+   without the epilogue, the difference is the epilogue's device us per
+   launch);
+   then on gsm its device time per launch, the whole call at the host's
+   pace, its plain version, the numpy oracle and its bound;
 6. times at B in {1024, 16384}: the cycle step per launch on a random row
    (P=16, M=128), and the whole-program run on gsm's program (T=84), each
    as device time under ``torch.profiler`` and at the host's issue pace
@@ -113,7 +117,8 @@ per line:
    and ``--parent build/parent/kernels``), the parent's cycle step and
    whole-program kernel are held bit-equal and timed in turns with this
    one's (parent, new, new, parent) in each of these readings, host pace
-   included, and the records gain the ``parent_*`` and ``turns_*`` keys;
+   included, and the records gain the ``parent_*`` and ``turns_*`` keys
+   (the parent's oracle launches join the verdict phase of 5);
 7. mapping at scale, forked after CUDA is up:
    a. the fleet: ``compile_many`` over the 16 shipped (kernel, arch)
       points on min(8, CPUs) workers into a fresh cache, 16 of 16 ``ok``
@@ -926,7 +931,7 @@ def main_path(artifacts, device, cache, warm=False):
     the reports and the artifacts ``fuzz_kernel`` built; the oracle
     kernel's launches go to ``ORACLE_LAUNCHES``, one a chunk."""
     from repro_torch.fuzz.engine import fuzz_kernel
-    from repro_torch.kernels.oracle import oracle
+    from repro_torch.kernels.oracle import oracle_verdict
     from repro_torch.kernels.pe_array import cycle_step, run_cycles
 
     bench = json.loads((ROOT / "results" / "BENCH_fuzz.json").read_text())
@@ -936,14 +941,14 @@ def main_path(artifacts, device, cache, warm=False):
     phase = "main_path_warm" if warm else "main_path"
     t0 = time.monotonic()
     with recorded_artifacts() as made:
-        cycle_step.launches = run_cycles.launches = oracle.launches = 0
-        run_cycles.lane_launches = 0
+        cycle_step.launches = run_cycles.launches = 0
+        oracle_verdict.launches = run_cycles.lane_launches = 0
         reports = [fuzz_kernel(a.kernel, a.arch, memories=MAIN_MEMORIES,
                                batch=MAIN_BATCH, seed=0, config=map_config(),
                                cache=cache, device=device)
                    for a in artifacts]
         steps, runs = cycle_step.launches, run_cycles.launches
-        lanes, oracles = run_cycles.lane_launches, oracle.launches
+        lanes, oracles = run_cycles.lane_launches, oracle_verdict.launches
     wall = time.monotonic() - t0
     LAYOUT_LAUNCHES[phase] = {"lane": lanes, "uniform": runs - lanes}
     ORACLE_LAUNCHES[phase] = oracles
@@ -1028,7 +1033,7 @@ def adres_path(device) -> int:
     from repro_torch.cgra.artifact import Artifact
     from repro_torch.fuzz.corpus import make_corpus
     from repro_torch.fuzz.engine import fuzz_program
-    from repro_torch.kernels.oracle import oracle
+    from repro_torch.kernels.oracle import oracle_verdict
     from repro_torch.kernels.pe_array import cycle_step, run_cycles
 
     art = Artifact.from_dict(json.loads(
@@ -1038,12 +1043,12 @@ def adres_path(device) -> int:
     mems = make_corpus(art, ADRES_MEMORIES, seed=0)
     chunks = -(-ADRES_MEMORIES // ADRES_BATCH)
     t0 = time.monotonic()
-    cycle_step.launches = run_cycles.launches = oracle.launches = 0
+    cycle_step.launches = run_cycles.launches = oracle_verdict.launches = 0
     run_cycles.lane_launches = run_cycles.ring_launches = 0
     rep = fuzz_program(art, mems, batch=ADRES_BATCH, device=device)
     steps, runs = cycle_step.launches, run_cycles.launches
     lanes, rings = run_cycles.lane_launches, run_cycles.ring_launches
-    oracles = oracle.launches
+    oracles = oracle_verdict.launches
     wall = time.monotonic() - t0
     LAYOUT_LAUNCHES["adres_path"] = {"lane": lanes, "uniform": runs - lanes}
     ORACLE_LAUNCHES["adres_path"] = oracles
@@ -1994,14 +1999,17 @@ def activity_cost(artifacts, device) -> None:
           "seconds": round(time.monotonic() - t0, 3)})
 
 
-def triage_phase(device) -> None:
+def triage_phase(device) -> int:
     """Phase 4d: an injected fault in gsm, fuzzed, shrunk and explained on
-    the card exactly as on the CPU."""
+    the card exactly as on the CPU.  Returns the probes of its shrinking
+    (each one oracle launch on the card)."""
     import dataclasses
+    import numpy as np
     from repro_torch.cgra.artifact import load_artifact
     from repro_torch.fuzz.corpus import make_corpus
     from repro_torch.fuzz.engine import fuzz_program
-    from repro_torch.fuzz.triage import inject_fault, triage_failure
+    from repro_torch.fuzz.triage import (engine_check, inject_fault, shrink,
+                                         triage_failure)
 
     art = load_artifact("4x4", "gsm")
     mutated, cell, label = inject_fault(art.asm)
@@ -2026,20 +2034,25 @@ def triage_phase(device) -> None:
     docs = [json.loads(Path(r.reproducer).read_text()) for r in (card, cpu)]
     check(docs[0].pop("backend") == "cuda" and docs[1].pop("backend") == "ref"
           and docs[0] == docs[1], "reproducers differ apart from backend")
+    failing = np.asarray(cpu.failing)
+    probes = shrink(mems[failing], engine_check(faulty, "cpu"),
+                    indices=failing)[2]
     emit({"phase": "triage", "kernel": "gsm", "fault": label,
           "cell": list(cell), "memories": MAIN_MEMORIES,
           "failing": len(card.failing), "divergence": card.divergence,
+          "shrink_probes": probes,
           "reproducer": os.path.relpath(card.reproducer, ROOT),
           "seconds": round(time.monotonic() - t0, 3)})
+    return probes
 
 
 def stream_phase(device) -> None:
     """Phase 5: one kernel over a large corpus in large batches."""
     from repro_torch.fuzz.engine import fuzz_kernel
-    from repro_torch.kernels.oracle import oracle
+    from repro_torch.kernels.oracle import oracle_verdict
     from repro_torch.kernels.pe_array import run_cycles
 
-    run_cycles.launches = oracle.launches = 0
+    run_cycles.launches = oracle_verdict.launches = 0
     rep = fuzz_kernel("gsm", "4x4", memories=STREAM_MEMORIES,
                       batch=STREAM_BATCH, seed=1, config=map_config(),
                       device=device)
@@ -2049,14 +2062,14 @@ def stream_phase(device) -> None:
     check(run_cycles.launches == chunks,
           f"stream: run_cycles launched {run_cycles.launches} times, "
           f"not {chunks}")
-    check(oracle.launches == chunks,
-          f"stream: the oracle launched {oracle.launches} times, not "
+    check(oracle_verdict.launches == chunks,
+          f"stream: the oracle launched {oracle_verdict.launches} times, not "
           f"{chunks}")
-    ORACLE_LAUNCHES["stream"] = oracle.launches
+    ORACLE_LAUNCHES["stream"] = oracle_verdict.launches
     emit({"phase": "stream", "kernel": "gsm", "arch": "4x4",
           "memories": rep.memories, "batch": rep.batch,
           "run_cycles_launches": run_cycles.launches,
-          "oracle_launches": oracle.launches,
+          "oracle_launches": oracle_verdict.launches,
           "mem_rate": rep.mem_rate, "exec_time_s": rep.exec_time_s,
           "oracle_time_s": rep.oracle_time_s})
 
@@ -2134,27 +2147,54 @@ def profile_phase(device) -> None:
 def oracle_launches(path: str):
     """Counts the oracle kernel's launches in the block into
     ``ORACLE_LAUNCHES[path]``."""
-    from repro_torch.kernels.oracle import oracle
+    from repro_torch.kernels.oracle import oracle_verdict
 
-    before = oracle.launches
+    before = oracle_verdict.launches
     yield
-    ORACLE_LAUNCHES[path] = oracle.launches - before
+    ORACLE_LAUNCHES[path] = oracle_verdict.launches - before
 
 
-def oracle_phase(device, artifacts) -> dict:
-    """Phase 5c: the oracle kernel against its plain version on the card
-    and the numpy oracle on every shipped artifact at ``TIMED_BATCHES``,
-    bit-equal; then on gsm, per B, its device time per launch under
-    ``torch.profiler`` (the kernel alone, and every device op of a call
-    on a chunk already on the card: the error word's set, the launch, the
-    copy back), the whole call at the host's pace, the plain version on the
-    card, the numpy oracle on the host and the bound.  Returns the
-    largest absolute difference of those comparisons and {B: times}."""
+def verdict_operands(art, mems, device, fault="neither", rows=()):
+    """(dev_mems, sim_image, sim_vals, slots, numpy oracle) of ``art`` over
+    ``mems`` on the card: a simulator's result made from the numpy
+    oracle's by ``sample.verdict_case`` (every other node compared,
+    ``fault`` planted at ``rows``)."""
+    import numpy as np
+    import torch
+    from repro_torch.fuzz.engine import batched_oracle
+    from repro_torch.kernels.sample import verdict_case
+
+    ov, om = batched_oracle(art.program, mems)
+    vals, sim_mem = verdict_case(ov, om, fault, rows)
+    ids = art.oracle_table.node_ids
+    nodes = list(vals)
+    sim = np.stack([vals[n] for n in nodes]) if nodes else \
+        np.zeros((0, len(mems)), np.int32)
+    return (torch.as_tensor(mems, device=device),
+            torch.as_tensor(sim_mem, device=device),
+            torch.as_tensor(sim, device=device),
+            [ids.index(n) for n in nodes], (ov, om, vals, sim_mem))
+
+
+def oracle_phase(device, artifacts, parent=None) -> dict:
+    """Phase 5c: the oracle kernel (``oracle_verdict``) against its plain
+    version on the card and the numpy oracle on every shipped artifact at
+    ``TIMED_BATCHES``, images and node values bit-equal and no memory bad;
+    then the verdict phase; then on gsm, per B, its device time per launch
+    under ``torch.profiler`` (the kernel alone, and every device op of a
+    call on a chunk already on the card: the error word's set, the launch,
+    the verdict's copy back), the whole call at the host's pace, the plain
+    version on the card, the numpy oracle on the host and the bound.
+    ``parent`` (the parent commit's ``pe_array``) goes to the verdict
+    phase.  Returns the largest absolute difference of those comparisons
+    and {B: times}."""
+    import importlib
+
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.fuzz.engine import batched_oracle
-    from repro_torch.kernels.oracle import oracle, oracle_ref
+    from repro_torch.kernels.oracle import oracle_ref, oracle_verdict
     from repro_torch.kernels.sample import tiled_corpus
 
     def diff(a, b, what) -> int:
@@ -2168,24 +2208,31 @@ def oracle_phase(device, artifacts) -> dict:
                 av[n] - np.broadcast_to(bv[n], av[n].shape)).max(initial=0)))
         return err
 
-    oracle.launches = max_err = 0
+    oracle_verdict.launches = max_err = 0
     for art in artifacts:
+        table = art.oracle_table
         for B in TIMED_BATCHES:
             mems = tiled_corpus(art, B)
-            got = oracle(art.oracle_table, torch.as_tensor(mems,
-                                                          device=device))
+            dev_mems, sim_image, sim, slots, (ov, om, _, _) = \
+                verdict_operands(art, mems, device)
+            got = oracle_verdict(table, dev_mems, sim_image, sim, slots)
+            vals = got.vals.cpu().numpy()
+            kernel = ({n: vals[pos] for pos, n in enumerate(table.node_ids)}
+                      if table.trip > 0 else {}, got.image.cpu().numpy())
             what = f"oracle {art.arch}/{art.kernel} B={B}"
-            err = max(diff(got, oracle_ref(art.oracle_table, torch.as_tensor(
-                mems, device=device)), what + " vs plain"),
-                diff(got, batched_oracle(art.program, mems),
-                     what + " vs numpy"))
+            err = max(diff(kernel, oracle_ref(table, dev_mems),
+                           what + " vs plain"),
+                      diff(kernel, (ov, om), what + " vs numpy"))
             check(err == 0, f"{what}: off by up to {err}")
+            check(not got.bad.any(), f"{what}: {int(got.bad.sum())} memories "
+                                     f"bad against the oracle's own result")
             max_err = max(max_err, err)
-    launches = oracle.launches
+    launches = oracle_verdict.launches
     check(launches == len(artifacts) * len(TIMED_BATCHES),
           f"oracle phase: {launches} launches")
     ORACLE_LAUNCHES["oracle phase"] = launches
-    verdict_phase(device, artifacts)
+    verdict_phase(device, artifacts, None if parent is None else
+                  importlib.import_module("repro_torch.parent_kernels.oracle"))
 
     art = next(a for a in artifacts if a.kernel == "gsm")
     table = art.oracle_table
@@ -2193,11 +2240,12 @@ def oracle_phase(device, artifacts) -> dict:
     times = {}
     for B in TIMED_BATCHES:
         mems = tiled_corpus(art, B)
-        dev_mems = torch.as_tensor(mems, device=device)
-        M = mems.shape[1]
+        dev_mems, sim_image, sim, slots, _ = verdict_operands(art, mems,
+                                                              device)
+        M, K = mems.shape[1], len(slots)
 
         def call():
-            oracle(table, dev_mems)
+            oracle_verdict(table, dev_mems, sim_image, sim, slots)
 
         for _ in range(3):
             call()
@@ -2223,7 +2271,10 @@ def oracle_phase(device, artifacts) -> dict:
         for _ in range(3):
             batched_oracle(art.program, mems)
         numpy_ms = (time.perf_counter() - t0) * 1e3 / 3
-        bytes_ = 4 * B * M + 8 * B * M + 8 * N * B + 4 * table.packed().size
+        # the images in, the images and node values out, the table, the
+        # simulator's images and node values in, the verdict words out
+        bytes_ = (4 * B * M + 8 * B * M + 8 * N * B + 4 * table.packed().size
+                  + 4 * B * M + 4 * K * B + 4 * B)
         ops = ORACLE_OPS_PER_NODE * N * trip * B
         bound_ms, bound_by = bound(bytes_, ops)
         times[B] = {"device_us": kernel_us, "call_device_us": busy_us,
@@ -2231,7 +2282,7 @@ def oracle_phase(device, artifacts) -> dict:
                     "numpy_ms": numpy_ms, "bound_us": bound_ms * 1e3,
                     "bound_by": bound_by, "bytes": bytes_, "ops": ops}
         emit({"phase": "oracle_timing", "kernel": "gsm", "batch": B,
-              "nodes": N, "trip": trip, **times[B]})
+              "nodes": N, "nodes_compared": K, "trip": trip, **times[B]})
     return max_err, times
 
 
@@ -2241,21 +2292,25 @@ VERDICT_CHECKS, VERDICT_ROW_STEP = ("neither", "both"), 97
 VERDICT_CALLS = 20
 
 
-def verdict_phase(device, artifacts) -> None:
-    """The oracle kernel's verdict epilogue (``oracle_verdict``) on every
-    shipped artifact at ``TIMED_BATCHES``: its mask equal to
-    ``compare_batch``'s on the same operands, the oracle's own results
-    with differences planted at every ``VERDICT_ROW_STEP``-th row and
-    without; then the plain launch and the verdict launch, each
-    ``VERDICT_CALLS`` back to back between two CUDA events, in turns
-    (plain, verdict, verdict, plain), on a chunk already on the card.  One
-    line an artifact and B: device us per launch of each and the
-    epilogue's, their difference."""
+def verdict_phase(device, artifacts, parent_oracle=None) -> None:
+    """The oracle kernel's verdict (``oracle_verdict``) on every shipped
+    artifact at ``TIMED_BATCHES``: its mask equal to ``compare_batch``'s
+    on the same operands, the oracle's own results with differences
+    planted at every ``VERDICT_ROW_STEP``-th row and without; then its
+    launch, ``VERDICT_CALLS`` back to back between two CUDA events, on a
+    chunk already on the card.  With ``parent_oracle`` (the parent
+    commit's ``kernels.oracle``) its launches are timed in turns with this
+    one's: its verdict launch and, where its package still has one (an
+    ``enqueue`` that takes ``sim``), its launch without the epilogue,
+    whose difference from this launch is the epilogue's cost.  One line
+    an artifact and B."""
+    import inspect
+
     import numpy as np
     import torch
-    from repro_torch.fuzz.engine import batched_oracle, compare_batch
-    from repro_torch.kernels.oracle import enqueue, oracle, oracle_verdict
-    from repro_torch.kernels.sample import tiled_corpus, verdict_case
+    from repro_torch.fuzz.engine import compare_batch
+    from repro_torch.kernels.oracle import enqueue, oracle_verdict
+    from repro_torch.kernels.sample import tiled_corpus
 
     def us_per_launch(fn) -> float:
         start = torch.cuda.Event(enable_timing=True)
@@ -2267,22 +2322,32 @@ def verdict_phase(device, artifacts) -> None:
         end.synchronize()
         return start.elapsed_time(end) * 1e3 / VERDICT_CALLS
 
-    before = oracle.verdicts
+    def launches(table, dev_mems, operands):
+        """{side: one launch, not waited for} to time in turns."""
+        sides = {"verdict": lambda: enqueue(table, dev_mems, *operands)}
+        if parent_oracle is None:
+            return sides
+        if "sim" in inspect.signature(parent_oracle.enqueue).parameters:
+            sides["parent_plain"] = lambda: parent_oracle.enqueue(table,
+                                                                  dev_mems)
+            sides["parent_verdict"] = lambda: parent_oracle.enqueue(
+                table, dev_mems, operands)
+        else:
+            sides["parent_verdict"] = lambda: parent_oracle.enqueue(
+                table, dev_mems, *operands)
+        return sides
+
+    before = oracle_verdict.launches
+    timed = 0
     for art in artifacts:
         table = art.oracle_table
         for B in TIMED_BATCHES:
             mems = tiled_corpus(art, B)
-            dev_mems = torch.as_tensor(mems, device=device)
-            ov, om = batched_oracle(art.program, mems)
             what = f"verdict {art.arch}/{art.kernel} B={B}"
             for fault in VERDICT_CHECKS:
-                vals, sim_mem = verdict_case(ov, om, fault,
-                                             range(0, B, VERDICT_ROW_STEP))
-                nodes = list(vals)
-                slots = [table.node_ids.index(n) for n in nodes]
-                sim = torch.as_tensor(np.stack([vals[n] for n in nodes]),
-                                      device=device)
-                sim_image = torch.as_tensor(sim_mem, device=device)
+                dev_mems, sim_image, sim, slots, (ov, om, vals, sim_mem) = \
+                    verdict_operands(art, mems, device, fault,
+                                     range(0, B, VERDICT_ROW_STEP))
                 got = oracle_verdict(table, dev_mems, sim_image, sim, slots)
                 want = compare_batch(vals, sim_mem, ov, om)
                 check(np.array_equal(got.bad, want),
@@ -2290,24 +2355,26 @@ def verdict_phase(device, artifacts) -> None:
                       f"verdicts differ from compare_batch")
                 check(want.any() == (fault != "neither"),
                       f"{what} {fault}: planted {int(want.sum())} failures")
-            operands = (sim_image, sim, slots)
-            readings = {"plain": [], "verdict": []}
-            for side in ("plain", "verdict", "verdict", "plain"):
-                readings[side].append(us_per_launch(
-                    (lambda: enqueue(table, dev_mems)) if side == "plain"
-                    else (lambda: enqueue(table, dev_mems, operands))))
-            plain_us = sum(readings["plain"]) / 2
-            verdict_us = sum(readings["verdict"]) / 2
+            sides = launches(table, dev_mems, (sim_image, sim, slots))
+            for launch in sides.values():     # builds and first launches
+                launch()
+            # a reading thrown away: the first one after the host's checks
+            # read 3-7 us high at B = 16384
+            us_per_launch(sides["verdict"])
+            readings = {side: [] for side in sides}
+            for side in list(sides) + list(reversed(sides)):
+                readings[side].append(us_per_launch(sides[side]))
+            timed += 1 + 3 * VERDICT_CALLS
+            us = {f"{side}_us": sum(r) / 2 for side, r in readings.items()}
+            if "parent_plain_us" in us:
+                us["epilogue_us"] = us["verdict_us"] - us["parent_plain_us"]
             emit({"phase": "oracle_verdict", "kernel": art.kernel,
                   "arch": art.arch, "batch": B, "nodes_compared": len(slots),
-                  "plain_us": plain_us, "verdict_us": verdict_us,
-                  "epilogue_us": verdict_us - plain_us,
-                  "readings_us": readings})
+                  **us, "readings_us": readings})
     ORACLE_LAUNCHES["oracle phase, verdict"] = checks = \
         len(artifacts) * len(TIMED_BATCHES) * len(VERDICT_CHECKS)
-    timed = len(artifacts) * len(TIMED_BATCHES) * 2 * VERDICT_CALLS
-    check(oracle.verdicts - before == checks + timed,
-          f"verdict phase: {oracle.verdicts - before} verdict launches, not "
+    check(oracle_verdict.launches - before == checks + timed,
+          f"verdict phase: {oracle_verdict.launches - before} launches, not "
           f"{checks} checks and {timed} timed")
 
 
@@ -2704,8 +2771,8 @@ def main(argv=None) -> int:
                                              "GPU (see the module docstring)")
     ap.add_argument("--parent", metavar="DIR",
                     help="a copy of the parent commit's src/repro_torch/"
-                         "kernels: phases 6, 6b and 6c time its kernels in "
-                         "turns with this one's")
+                         "kernels: phases 5c, 6, 6b and 6c time its kernels "
+                         "in turns with this one's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2757,11 +2824,11 @@ def main(argv=None) -> int:
     activity_phase(reports)
     activity_cost(artifacts, device)
     with oracle_launches("triage"):
-        triage_phase(device)
+        triage_probes = triage_phase(device)
     stream_phase(device)
     profile_phase(device)
-    oracle_err, oracle_times = oracle_phase(device, artifacts)
     parent = parent_kernels(args.parent)
+    oracle_err, oracle_times = oracle_phase(device, artifacts, parent)
     step_times = timing(device, parent)
     fused_times = program_timing(device, step_times, parent)
     stacked_times = stacked_timing(device, artifacts, parent)
@@ -2780,15 +2847,16 @@ def main(argv=None) -> int:
         serve_runs = serve_phase(device)
     fused_err = max(fused_err, sweep_err)
     # every run_cycles launch of these paths is a fuzz chunk on the card,
-    # and each such chunk takes one oracle launch; triage fuzzes its two
-    # chunks on the card (its shrinking keeps the numpy oracle), the
-    # stacked path keeps the numpy oracle, and cosim runs none
+    # and each such chunk takes one oracle launch; triage takes one for
+    # each of its two chunks, each probe of its shrinking and the
+    # reproducer's memory, the stacked path one a kernel, cosim none
     chunks = -(-MAIN_MEMORIES // MAIN_BATCH)
+    stacked = sum(a.arch == STACK_ARCH for a in artifacts)
     for path, want in (("fleet", fleet_runs), ("race", race_runs),
                        ("heuristic", heuristic_runs), ("serve", serve_runs),
-                       ("triage", chunks), ("cosim", 0),
+                       ("triage", chunks + triage_probes + 1), ("cosim", 0),
                        ("adres_path", adres_runs),
-                       ("stacked main path", 0)):
+                       ("stacked main path", stacked)):
         check(ORACLE_LAUNCHES[path] == want,
               f"{path}: the oracle kernel launched {ORACLE_LAUNCHES[path]} "
               f"times, not {want}")
@@ -2831,7 +2899,8 @@ def main(argv=None) -> int:
              max(stacked_err, stacked_times[0]), *stacked_times[1:],
              replaces="src/repro/fuzz/engine.py:508",
              launches_by_layout=LAYOUT_LAUNCHES["stacked_main_path"]),
-        line("oracle.oracle", sum(ORACLE_LAUNCHES.values()), oracle_err,
+        line("oracle.oracle_verdict", sum(ORACLE_LAUNCHES.values()),
+             oracle_err,
              at_main["device_us"] / 1e3, at_main["plain_ms"],
              at_main["bound_us"] / 1e3, at_main["bound_by"], replaces=None,
              source="src/repro_torch/kernels/csrc/oracle.cu",

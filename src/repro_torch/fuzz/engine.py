@@ -7,12 +7,13 @@ Counterpart of ``src/repro/fuzz/engine.py``:
   int32 after every op.
 * :func:`fuzz_program` chunks a corpus through
   :func:`repro_torch.cgra.simulator.execute_asm` (the PE array's batch
-  axis, on the card by default), compares every last-iteration node value
-  and the final memory image against the batched oracle (on the card the
-  oracle kernel of :mod:`repro_torch.kernels.oracle`, which also makes
-  the comparison there), reports per-memory verdicts with the comparison
-  contract of ``verify``, and harvests switching activity from each
-  chunk's trace on its device.
+  axis, on the card by default), judges every chunk by the one verdict
+  step of this module (every last-iteration node value and the final
+  memory image against the oracle: on the card the oracle kernel of
+  :mod:`repro_torch.kernels.oracle`, which also makes the comparison
+  there; on the CPU :func:`batched_oracle` and :func:`compare_batch`),
+  reports per-memory verdicts with the comparison contract of ``verify``,
+  and harvests switching activity from each chunk's trace on its device.
 * :func:`fuzz_kernel` maps a registry kernel through the port's
   ``Toolchain`` as the JAX package does (``map_time_s``; ``unmapped``,
   ``timeout`` and ``error`` when no mapping comes back), fuzzes the
@@ -277,8 +278,9 @@ def last_cells(asm: AssembledCIL, trip: int, keep=None
 def node_values_from_outs(
     asm: AssembledCIL, outs: torch.Tensor, trip: int
 ) -> Dict[int, np.ndarray]:
-    """Last-iteration per-node values from an out trace (T, B, P).  Only
-    those cells leave the device."""
+    """Last-iteration per-node values from an out trace (T, B, P), on the
+    host: the JAX package's helper.  The fuzz paths gather the same cells
+    on the trace's device (``_VerdictStep.gather``)."""
     nodes, ts, pes = last_cells(asm, trip)
     if not nodes:
         return {}
@@ -288,37 +290,90 @@ def node_values_from_outs(
     return dict(zip(nodes, picked))
 
 
-def failing_row_mismatches(
-    program: LoopBuilder, nodes: Sequence[int], slots: Sequence[int],
-    sim_vals: torch.Tensor, sim_mem: torch.Tensor, verdict: OracleVerdict,
-    failing: np.ndarray, lo: int, lines: List[str],
-) -> int:
-    """Extend ``lines`` as the full-batch path extends its mismatch sample:
-    :func:`mismatch_strings` on each failing row in turn (``failing``,
-    ascending, in the chunk that starts at corpus index ``lo``) until the
-    sample holds ``_MISMATCH_SAMPLE_CAP`` lines.  Only the rows it asks
-    about leave the operands' device: ``sim_vals`` (K, B), the simulator's
-    values of ``nodes``; ``sim_mem`` (B, M); the oracle's ``verdict.vals``
-    at table ``slots`` and ``verdict.image``.  Returns the rows copied
-    back."""
-    back = 0
-    pick = np.asarray(slots, np.intp)
-    while len(lines) < _MISMATCH_SAMPLE_CAP and back < len(failing):
-        take = failing[back:back + _MISMATCH_SAMPLE_CAP - len(lines)]
-        back += len(take)
-        rows = torch.as_tensor(take, dtype=torch.long, device=sim_mem.device)
-        sim_v = sim_vals.index_select(1, rows).cpu().numpy()
-        want_v = verdict.vals.index_select(1, rows).cpu().numpy()[pick]
-        sim_m = sim_mem.index_select(0, rows).cpu().numpy()
-        want_m = verdict.image.index_select(0, rows).cpu().numpy()
-        got, want = dict(zip(nodes, sim_v)), dict(zip(nodes, want_v))
-        for j, i in enumerate(take):
-            if len(lines) >= _MISMATCH_SAMPLE_CAP:
-                break
-            lines.extend(mismatch_strings(
-                program, got, sim_m, want, want_m, j, label=lo + int(i)
-            )[:_MISMATCH_SAMPLE_CAP])
-    return back
+class _VerdictStep:
+    """The fuzz verdict of one artifact's batches on one device, the one
+    step by which every path judges memories (:func:`fuzz_program`,
+    :func:`fuzz_stacked`, triage's probes and reproducer).
+
+    The compared nodes are the program's that :func:`last_cells` finds,
+    each with its slot, its place in the DFG's topological order: on the
+    card the slots of ``artifact.oracle_table``, on the CPU the same order
+    without compiling the table, so that a program the table refuses
+    still fuzzes there.  No node is compared where the trip is 0."""
+
+    def __init__(self, artifact: Artifact, dev: torch.device):
+        program = artifact.program
+        self.program, self.dev = program, dev
+        card = dev.type == "cuda"
+        self.backend = "cuda" if card else "numpy"
+        self.table = artifact.oracle_table if card else None
+        order = ((self.table.node_ids if card
+                  else program.build_dfg().topo_order())
+                 if program.trip > 0 else ())
+        slot_of = {n: i for i, n in enumerate(order)}
+        self.order = tuple(order)
+        self.nodes, ts, pes = last_cells(artifact.asm, program.trip,
+                                         keep=slot_of)
+        self.slots = tuple(slot_of[n] for n in self.nodes)
+        index = dict(device=dev, dtype=torch.long)
+        self.cells = (torch.tensor(ts, **index), slice(None),
+                      torch.tensor(pes, **index))
+
+    def gather(self, outs: torch.Tensor) -> torch.Tensor:
+        """The compared nodes' last-iteration values from a trace (T, B,
+        P): (K, B) on its device, in :attr:`nodes` order."""
+        return outs[self.cells].contiguous()
+
+    def judge(self, mems: np.ndarray, sim_mem: torch.Tensor,
+              sim_vals: torch.Tensor) -> OracleVerdict:
+        """The oracle over ``mems`` (B, M) and the memories whose final
+        image ``sim_mem`` or values ``sim_vals`` (from :meth:`gather`)
+        differ from it.  On the card one
+        :func:`~repro_torch.kernels.oracle.oracle_verdict` launch on its
+        own device copy of ``mems``; on the CPU :func:`batched_oracle` and
+        :func:`compare_batch`, the JAX package's contract, with the
+        oracle's images and values a slot as CPU tensors."""
+        if self.table is not None:
+            return oracle_verdict(
+                self.table, torch.as_tensor(np.ascontiguousarray(mems),
+                                            device=self.dev),
+                sim_mem.contiguous(), sim_vals, self.slots)
+        vals, image = batched_oracle(self.program, mems)
+        bad = compare_batch(dict(zip(self.nodes, sim_vals.numpy())),
+                            sim_mem.numpy(), vals, image)
+        per_slot = np.array([vals[n] for n in self.order], np.int64)
+        return OracleVerdict(bad, torch.from_numpy(image), torch.from_numpy(
+            per_slot.reshape(len(self.order), len(image))))
+
+    def mismatches(self, sim_vals: torch.Tensor, sim_mem: torch.Tensor,
+                   verdict: OracleVerdict, failing: np.ndarray, lo: int,
+                   lines: List[str], cap: int = _MISMATCH_SAMPLE_CAP) -> int:
+        """Extend ``lines`` by :func:`mismatch_strings` of each failing row
+        in turn (``failing``, ascending, in the batch that starts at corpus
+        index ``lo``) until they hold ``cap`` lines, as the JAX package
+        samples them.  Only the rows it asks about leave the operands'
+        device: ``sim_vals`` and ``sim_mem`` of :meth:`judge`, the
+        verdict's images and values.  Returns the rows copied back."""
+        back = 0
+        pick = np.asarray(self.slots, np.intp)
+        while len(lines) < cap and back < len(failing):
+            take = failing[back:back + cap - len(lines)]
+            back += len(take)
+            rows = torch.as_tensor(take, dtype=torch.long,
+                                   device=sim_mem.device)
+            sim_v = sim_vals.index_select(1, rows).cpu().numpy()
+            want_v = verdict.vals.index_select(1, rows).cpu().numpy()[pick]
+            sim_m = sim_mem.index_select(0, rows).cpu().numpy()
+            want_m = verdict.image.index_select(0, rows).cpu().numpy()
+            got, want = dict(zip(self.nodes, sim_v)), dict(zip(self.nodes,
+                                                               want_v))
+            for j, i in enumerate(take):
+                if len(lines) >= cap:
+                    break
+                lines.extend(mismatch_strings(
+                    self.program, got, sim_m, want, want_m, j,
+                    label=lo + int(i))[:cap])
+        return back
 
 
 # ---------------------------------------------------------------------------
@@ -384,27 +439,27 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
     chunk, and compares under the ``verify`` contract.  Activity
     statistics are harvested from each chunk's trace on its device.
 
-    On the card the oracle is one launch of the oracle kernel over the
+    Each chunk is judged by the verdict step (``_VerdictStep``).  On the
+    card the oracle is one launch of the oracle kernel over the
     artifact's compiled table (``Artifact.oracle_table``), on its own
     device copy of the chunk from the host array, with the verdict
     epilogue (:func:`~repro_torch.kernels.oracle.oracle_verdict`): the
     chunk's final images and last-iteration node values stay on the card,
     only the verdict mask comes back, and the four operands of a failing
-    row only where :func:`mismatch_strings` is asked about it
-    (:func:`failing_row_mismatches`).  On the CPU the oracle is
-    :func:`batched_oracle` and the comparison :func:`compare_batch`.  Both
-    give the same failing memories and mismatch lines.
+    row only where :func:`mismatch_strings` is asked about it.  On the
+    CPU the oracle is :func:`batched_oracle` and the comparison
+    :func:`compare_batch`.  Both give the same failing memories and
+    mismatch lines.
 
     Every phase is a span (:mod:`repro_torch.obs.trace`) under
     ``fuzz.program``, one ``fuzz.chunk`` a chunk: ``fuzz.execute``
-    (decode, preset and the launch's enqueue), ``fuzz.readback`` (on the
-    card the gather of the node values into a (K, B) device tensor; on the
-    CPU that gather and the final images, copied back), ``fuzz.oracle``
-    (attribute ``backend``, ``cuda`` or ``numpy``; on the card the chunk's
-    copy in, the launch, the verdict's copy back and the wait),
-    ``fuzz.compare`` (attribute ``backend``; on the card ``rows_back``,
-    the failing rows copied back) and ``fuzz.activity`` (also the
-    accumulator's set-up and its report).
+    (decode, preset and the launch's enqueue), ``fuzz.readback`` (the
+    gather of the node values into a (K, B) tensor on the trace's
+    device), ``fuzz.oracle`` (attribute ``backend``, ``cuda`` or
+    ``numpy``; on the card the chunk's copy in, the launch, the verdict's
+    copy back and the wait), ``fuzz.compare`` (attributes ``backend`` and
+    ``rows_back``, the failing rows copied back) and ``fuzz.activity``
+    (also the accumulator's set-up and its report).
     The report's times are their projections: ``exec_time_s`` is execute
     + readback.  Where ``fuzz.execute`` makes a launch it carries, from
     ``run_cycles.last_geometry``, the launch's ``pes_per_warp`` (in the
@@ -414,7 +469,7 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
     (``run_cycles.ring_launches``).
     """
     dev = resolve_device(device)
-    asm, program = artifact.asm, artifact.program
+    asm = artifact.asm
     mems = np.asarray(mems, np.int32)
     if mems.ndim == 1:
         mems = mems[None, :]
@@ -424,17 +479,7 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
                      batch=min(batch, n) if n else batch,
                      backend=_backend(dev))
     times = dict.fromkeys(_PHASES, 0.0)
-    card = dev.type == "cuda"
-    oracle_backend = "cuda" if card else "numpy"
-    if card:
-        table = artifact.oracle_table
-        slot_of = ({n: i for i, n in enumerate(table.node_ids)}
-                   if table.trip > 0 else {})
-        nodes, ts, pes = last_cells(asm, program.trip, keep=slot_of)
-        slots = tuple(slot_of[n] for n in nodes)
-        index = dict(device=dev, dtype=torch.long)
-        cells = (torch.tensor(ts, **index), slice(None),
-                 torch.tensor(pes, **index))
+    step = _VerdictStep(artifact, dev)
     rings = run_cycles.ring_launches
     root = obs_trace.timed_span("fuzz.program", kernel=artifact.kernel,
                                 memories=n, batch=rep.batch,
@@ -458,41 +503,18 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
                         sp.set(pes_per_warp=geom.warp_pes(asm.num_pes),
                                chunk_rows=geom.chunk_rows)
                 with _phase(times, "readback"):
-                    if card:
-                        sim_vals = outs[cells].contiguous()
-                    else:
-                        sim_vals = node_values_from_outs(asm, outs,
-                                                         program.trip)
-                        sim_mem = final.mem.cpu().numpy()
-                with _phase(times, "oracle", backend=oracle_backend):
-                    if card:
-                        verdict = oracle_verdict(
-                            table, torch.as_tensor(
-                                np.ascontiguousarray(chunk), device=dev),
-                            final.mem.contiguous(), sim_vals, slots)
-                    else:
-                        oracle_vals, oracle_mem = batched_oracle(program,
-                                                                 chunk)
-                with _phase(times, "compare", backend=oracle_backend) as sp:
-                    if card:
-                        bad = np.nonzero(verdict.bad)[0]
-                        rep.failing.extend((lo + bad).tolist())
-                        sp.set(rows_back=failing_row_mismatches(
-                            program, nodes, slots, sim_vals, final.mem,
-                            verdict, bad, lo, rep.mismatches))
-                        # the oracle's device buffer goes before the next
-                        # chunk's trace is made
-                        verdict = None
-                    else:
-                        bad = compare_batch(sim_vals, sim_mem, oracle_vals,
-                                            oracle_mem)
-                        for i in np.nonzero(bad)[0]:
-                            rep.failing.append(lo + int(i))
-                            if len(rep.mismatches) < _MISMATCH_SAMPLE_CAP:
-                                rep.mismatches.extend(mismatch_strings(
-                                    program, sim_vals, sim_mem, oracle_vals,
-                                    oracle_mem, int(i), label=lo + int(i)
-                                )[:_MISMATCH_SAMPLE_CAP])
+                    sim_vals = step.gather(outs)
+                with _phase(times, "oracle", backend=step.backend):
+                    verdict = step.judge(chunk, final.mem, sim_vals)
+                with _phase(times, "compare", backend=step.backend) as sp:
+                    bad = np.nonzero(verdict.bad)[0]
+                    rep.failing.extend((lo + bad).tolist())
+                    sp.set(rows_back=step.mismatches(
+                        sim_vals, final.mem, verdict, bad, lo,
+                        rep.mismatches))
+                    # the oracle's device buffer goes before the next
+                    # chunk's trace is made
+                    verdict = None
                 if acc is not None:
                     with _phase(times, "activity"):
                         acc.update(outs)
@@ -659,39 +681,37 @@ def run_stacked(artifacts: Sequence[Artifact], mems: np.ndarray,
 def fuzz_stacked(artifacts: Sequence[Artifact], mems: np.ndarray,
                  device="cuda") -> List[FuzzReport]:
     """Differentially fuzz K artifacts of one grid in one stacked run.
-    ``mems`` is (B, M) (shared corpus) or (K, B, M).  Oracle comparison
-    and verdicts are those of per-kernel :func:`fuzz_program`; execution
-    time is split evenly over the K kernels."""
+    ``mems`` is (B, M) (shared corpus) or (K, B, M).  Each kernel is
+    judged by the verdict step of :func:`fuzz_program` (on the card one
+    oracle launch a kernel), with its verdicts; execution time, up to the
+    launch's end, is split evenly over the K kernels."""
     dev = resolve_device(device)
     mems = np.asarray(mems, np.int32)
     if mems.ndim == 2:
         mems = np.broadcast_to(mems[None], (len(artifacts),) + mems.shape)
     t0 = time.monotonic()
     final, outs = run_stacked(artifacts, mems, device=dev)
-    sim_mems = final.mem.cpu().numpy()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
     exec_time = time.monotonic() - t0
     reports: List[FuzzReport] = []
     for k, art in enumerate(artifacts):
-        program, asm = art.program, art.asm
-        sim_vals = node_values_from_outs(asm, outs[k], program.trip)
+        step = _VerdictStep(art, dev)
         t1 = time.monotonic()
-        oracle_vals, oracle_mem = batched_oracle(program, mems[k])
+        sim_vals = step.gather(outs[k])
+        verdict = step.judge(mems[k], final.mem[k], sim_vals)
         oracle_time = time.monotonic() - t1
-        bad = compare_batch(sim_vals, sim_mems[k], oracle_vals, oracle_mem)
+        bad = np.nonzero(verdict.bad)[0]
         rep = FuzzReport(
-            kernel=art.kernel, arch=art.arch, status="ok", ii=asm.ii,
+            kernel=art.kernel, arch=art.arch, status="ok", ii=art.asm.ii,
             memories=int(mems.shape[1]), batch=int(mems.shape[1]),
-            backend=_backend(dev),
+            backend=_backend(dev), failing=bad.tolist(),
             exec_time_s=round(exec_time / len(artifacts), 4),
             oracle_time_s=round(oracle_time, 4))
         share = exec_time / len(artifacts) + oracle_time
         rep.mem_rate = round(mems.shape[1] / share, 2) if share > 0 else 0.0
-        for i in np.nonzero(bad)[0]:
-            rep.failing.append(int(i))
-            if len(rep.mismatches) < _MISMATCH_SAMPLE_CAP:
-                rep.mismatches.extend(mismatch_strings(
-                    program, sim_vals, sim_mems[k], oracle_vals, oracle_mem,
-                    int(i))[:_MISMATCH_SAMPLE_CAP])
+        step.mismatches(sim_vals, final.mem[k], verdict, bad, 0,
+                        rep.mismatches)
         rep.mismatches = rep.mismatches[:_MISMATCH_SAMPLE_CAP]
         if rep.failing:
             rep.status = "mismatch"

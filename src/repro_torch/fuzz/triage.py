@@ -1,7 +1,9 @@
 """Mismatch triage: shrink, replay, explain, reproduce.
 
-A copy of ``src/repro/fuzz/triage.py`` that works on artifacts and runs
-each probe on the port's PE array (the card by default):
+A copy of ``src/repro/fuzz/triage.py`` that works on artifacts, runs
+each probe on the port's PE array (the card by default) and judges it, and
+the reproducer's memory, by the fuzz path's verdict step (on the card the
+oracle kernel):
 
 * :func:`shrink`: batch-bisection to a single failing memory.  Each probe
   is one batched run over half the current candidate set, so a failure
@@ -22,25 +24,25 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import sys
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..cgra.artifact import Artifact
 from ..cgra.bitstream import AssembledCIL
 from ..cgra.isa import encode_program
 from ..cgra.simulator import execute_asm
 from ..device import resolve_device
+from ..kernels.oracle import OracleVerdict
 from .engine import (
     M32,
     FuzzReport,
     _backend,
-    batched_oracle,
+    _VerdictStep,
     batched_oracle_iterations,
-    compare_batch,
-    mismatch_strings,
-    node_values_from_outs,
 )
 
 
@@ -114,23 +116,29 @@ def shrink(
     return cur[0], int(idx[0]), probes
 
 
+def _probe(step: _VerdictStep, artifact: Artifact, mems: np.ndarray,
+           device) -> Tuple[torch.Tensor, torch.Tensor, OracleVerdict]:
+    """One batched run of ``mems`` judged by ``step``: the simulator's
+    final images, its compared node values and the verdict."""
+    final, outs, _ = execute_asm(artifact.asm, artifact.grid, mems,
+                                 batch=mems.shape[0], device=device)
+    sim_vals = step.gather(outs)
+    return final.mem, sim_vals, step.judge(mems, final.mem, sim_vals)
+
+
 def engine_check(artifact: Artifact, device="cuda"
                  ) -> Callable[[np.ndarray], np.ndarray]:
-    """The standard batched probe for :func:`shrink`: execute + oracle +
-    compare, returning the failing mask."""
+    """The standard batched probe for :func:`shrink`: execute, then the
+    fuzz path's verdict step (on the card one oracle launch a probe),
+    returning the failing mask."""
     dev = resolve_device(device)
-    asm, program = artifact.asm, artifact.program
+    step = _VerdictStep(artifact, dev)
 
     def check(mems: np.ndarray) -> np.ndarray:
         mems = np.asarray(mems, np.int32)
         if mems.ndim == 1:
             mems = mems[None, :]
-        final, outs, _ = execute_asm(asm, artifact.grid, mems,
-                                     batch=mems.shape[0], device=dev)
-        sim_vals = node_values_from_outs(asm, outs, program.trip)
-        oracle_vals, oracle_mem = batched_oracle(program, mems)
-        return compare_batch(sim_vals, final.mem.cpu().numpy(),
-                             oracle_vals, oracle_mem)
+        return _probe(step, artifact, mems, dev)[2].bad
 
     return check
 
@@ -201,22 +209,20 @@ def triage_failure(
     to one memory, replay for the first divergence, write the reproducer,
     and annotate the report in place."""
     dev = resolve_device(device)
-    asm, program = artifact.asm, artifact.program
     failing = np.asarray(rep.failing, int)
     mem, idx, _probes = shrink(np.asarray(mems)[failing],
                                engine_check(artifact, dev), indices=failing)
     div = first_divergence(artifact, mem, dev)
-    solo = mem.reshape(1, -1)
-    final, outs, _ = execute_asm(asm, artifact.grid, solo, batch=1,
-                                 device=dev)
-    sim_vals = node_values_from_outs(asm, outs, program.trip)
-    oracle_vals, oracle_mem = batched_oracle(program, solo)
-    lines = mismatch_strings(program, sim_vals, final.mem.cpu().numpy(),
-                             oracle_vals, oracle_mem, 0, label=idx)
+    step = _VerdictStep(artifact, dev)
+    lines: List[str] = []
+    sim_mem, sim_vals, verdict = _probe(step, artifact, mem.reshape(1, -1),
+                                        dev)
+    step.mismatches(sim_vals, sim_mem, verdict, np.zeros(1, np.intp), idx,
+                    lines, cap=sys.maxsize)
     rep.divergence = div.to_dict() if div else None
     rep.reproducer = write_reproducer(
-        out_dir, rep.kernel, rep.arch, asm, _backend(dev), mem, idx, div,
-        lines)
+        out_dir, rep.kernel, rep.arch, artifact.asm, _backend(dev), mem, idx,
+        div, lines)
 
 
 # ---------------------------------------------------------------------------

@@ -82,11 +82,8 @@ def library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def oracle_library() -> ctypes.CDLL:
-    """The loaded oracle library with its C entry points typed."""
+    """The loaded oracle library with its C entry point typed."""
     lib = ctypes.CDLL(str(build(ORACLE_SOURCE).path))
-    lib.oracle_run.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                               + [ctypes.c_void_p])
-    lib.oracle_run.restype = ctypes.c_int
     lib.oracle_verdict_run.argtypes = ([ctypes.c_void_p] * 7
                                        + [ctypes.c_int] * 9
                                        + [ctypes.c_void_p])

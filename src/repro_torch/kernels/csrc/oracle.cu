@@ -8,8 +8,8 @@
 // port's fuzz/engine.py::_batched_interpret, op for op, written from that
 // file's _alu_vec: this file shares no code with pe_array.cu, because the
 // oracle is what the PE array is judged against and a fault copied into
-// both would hide itself.  kernels/oracle.py::oracle_ref is the plain
-// version.
+// both would hide itself.  kernels/oracle.py::oracle_ref and
+// oracle_verdict_ref are the plain versions.
 //
 // Semantics.  Every value is an int32 (the table refuses constants,
 // immediates and carry initial values outside 32 bits, so the numpy
@@ -59,9 +59,9 @@
 // the block widens its rows there first, and each thread then loads and
 // stores its own row.  The ragged last block masks its missing rows.
 //
-// The verdict epilogue (kVerdict; kernels/oracle.py::oracle_verdict).  The
-// fuzz path compares the simulator's result with the oracle's, and both
-// are on the card when the oracle runs: the simulator's final images
+// The verdict epilogue (kernels/oracle.py::oracle_verdict).  The fuzz path
+// compares the simulator's result with the oracle's, and both are on the
+// card when the oracle runs: the simulator's final images
 // (B, M) int32 and its last-iteration node values (K, B) int32, each with
 // the table slot it belongs to.  The block holds its rows' oracle images
 // in shared memory already, so the compare costs one more read of the
@@ -80,7 +80,7 @@
 // counter, several times the instructions.  Every comparison is int32
 // equality, the low 32 bits that fuzz/engine.py::compare_batch compares.
 // The verdict word of a memory is kNodeMismatch | kImageMismatch of what
-// differed, 0 where all agree.  A launch without kVerdict runs none of it.
+// differed, 0 where all agree.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -106,7 +106,7 @@ constexpr int kDefaultSharedBytes = 48 * 1024;
 constexpr int32_t kNodeMismatch = 1;
 constexpr int32_t kImageMismatch = 2;
 
-// The verdict epilogue's operands (kVerdict): the simulator's final
+// The verdict epilogue's operands: the simulator's final
 // images (B, M) and last-iteration node values (K, B), the table slot of
 // each of those K nodes, and one verdict word a memory.
 struct Verdict {
@@ -210,9 +210,9 @@ __device__ __forceinline__ int32_t image_mismatch(
 
 // One block: T memories (rows b0 .. b0 + T - 1 of the batch), the table
 // staged, the images in shared memory (kImageShared) or in `image`'s rows.
-// Output: image (B, M) int64, vals (N, B) int64, the error word and, with
-// kVerdict, a verdict word a memory.
-template <bool kImageShared, bool kVerdict>
+// Output: image (B, M) int64, vals (N, B) int64, the error word and a
+// verdict word a memory.
+template <bool kImageShared>
 __global__ void __launch_bounds__(kMaxThreads)
 oracle_kernel(const int32_t* __restrict__ table,
               const int32_t* __restrict__ mem, int64_t* __restrict__ image,
@@ -231,7 +231,7 @@ oracle_kernel(const int32_t* __restrict__ table,
   int32_t* img = carry + C * T;         // [M][S], when kImageShared
 
   for (int i = t; i < words; i += T) tab[i] = table[i];
-  const int run = rows * M;             // oracle_run: T * M < 2^31
+  const int run = rows * M;             // launch(): T * M < 2^31
   const int32_t* mem_b = mem + b0 * M;
   int64_t* image_b = image + b0 * M;
   for (int i = t; i < run; i += T) {
@@ -290,11 +290,10 @@ oracle_kernel(const int32_t* __restrict__ table,
     if (first_error != ULLONG_MAX) atomicMin(error, first_error);
     for (int pos = 0; pos < N; ++pos)
       vals_o[static_cast<int64_t>(pos) * B + b0 + t] = vals[pos * T + t];
-    if (kVerdict)
-      verdict.word[b0 + t] =
-          node_mismatch(verdict, vals, B, b0, T, t) |
-          image_mismatch<kImageShared>(verdict.sim_image + (b0 + t) * M, img,
-                                       row, M, S, t);
+    verdict.word[b0 + t] =
+        node_mismatch(verdict, vals, B, b0, T, t) |
+        image_mismatch<kImageShared>(verdict.sim_image + (b0 + t) * M, img,
+                                     row, M, S, t);
   }
   if (kImageShared) {
     __syncthreads();
@@ -311,7 +310,6 @@ oracle_kernel(const int32_t* __restrict__ table,
 // all ones, then the first (iteration * N + slot) whose address left
 // [0, M).  The geometry comes from kernels/oracle.py::oracle_geometry and
 // is checked here.  Returns the launch's cudaError.
-template <bool kVerdict>
 int launch(const int32_t* table, const int32_t* mem, int64_t* out,
            unsigned long long* error, int N, int C, int trip, int B, int M,
            int threads, int shared_bytes, int image_shared,
@@ -328,8 +326,8 @@ int launch(const int32_t* table, const int32_t* mem, int64_t* out,
   int64_t* vals = out + static_cast<int64_t>(B) * M;
   const cudaError_t set = cudaMemsetAsync(error, 0xFF, sizeof(*error), stream);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const auto kernel = image_shared ? oracle_kernel<true, kVerdict>
-                                   : oracle_kernel<false, kVerdict>;
+  const auto kernel =
+      image_shared ? oracle_kernel<true> : oracle_kernel<false>;
   static int allowed[2] = {};
   int& allow = allowed[image_shared ? 1 : 0];
   if (shared_bytes > kDefaultSharedBytes && shared_bytes > allow) {
@@ -346,19 +344,7 @@ int launch(const int32_t* table, const int32_t* mem, int64_t* out,
 
 }  // namespace
 
-// The oracle: `out` B*M + N*B + 1 int64, the images and node values of
-// launch(), then the error word.
-extern "C" int oracle_run(const int32_t* table, const int32_t* mem,
-                          int64_t* out, int N, int C, int trip, int B, int M,
-                          int threads, int shared_bytes, int image_shared,
-                          cudaStream_t stream) {
-  auto* error = reinterpret_cast<unsigned long long*>(
-      out + static_cast<int64_t>(B) * M + static_cast<int64_t>(N) * B);
-  return launch<false>(table, mem, out, error, N, C, trip, B, M, threads,
-                       shared_bytes, image_shared, Verdict{}, stream);
-}
-
-// The oracle with the verdict epilogue: `out` B*M + N*B int64 as in
+// The oracle and its verdict: `out` B*M + N*B int64 as in
 // launch(); `sim_image` (B, M) and `sim_vals` (K, B) int32, the
 // simulator's, and `slots` (K,) int32, each in [0, N); `words` holds B
 // int32 verdict words, padded to an even count, then the 64-bit error
@@ -373,7 +359,7 @@ extern "C" int oracle_verdict_run(const int32_t* table, const int32_t* mem,
   if (K < 0 || K > N || (K > 0 && trip == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   auto* error = reinterpret_cast<unsigned long long*>(words + ((B + 1) & ~1));
-  return launch<true>(table, mem, out, error, N, C, trip, B, M, threads,
-                      shared_bytes, image_shared,
-                      Verdict{sim_image, sim_vals, slots, words, K}, stream);
+  return launch(table, mem, out, error, N, C, trip, B, M, threads,
+                shared_bytes, image_shared,
+                Verdict{sim_image, sim_vals, slots, words, K}, stream);
 }

@@ -6,15 +6,15 @@ hand-written CUDA interpreter that runs it, one memory a thread
 into an :class:`OracleTable`: small int32 arrays that hold, for each node
 in the DFG's topological order, its operation, the kind and argument of
 each operand, its immediate and its flag producer, and for each carry its
-update slot and initial value.  :func:`oracle` runs the table over a
-``(B, M)`` int32 memory batch on the card and returns what
-:func:`repro_torch.fuzz.engine.batched_oracle` returns, ``({nid: (B,)
-int64}, (B, M) int64)`` of int32-wrapped values, in one launch of
-``oracle_kernel`` and one copy back.  :func:`oracle_verdict` is the same
-launch with the verdict epilogue: it also compares the simulator's final
-images and node values, on the card, with the oracle's, and copies back
-only one verdict word a memory.  :func:`oracle_ref` and
-:func:`oracle_verdict_ref` are the plain PyTorch versions, on any device.
+update slot and initial value.  :func:`oracle_verdict` runs the table over
+a ``(B, M)`` int32 memory batch on the card, in one launch of
+``oracle_kernel``, and compares there the simulator's final images and
+node values with the oracle's: only one verdict word a memory comes back,
+and the oracle's images and node values stay on the card.
+:func:`oracle_ref` (what :func:`repro_torch.fuzz.engine.batched_oracle`
+returns, ``({nid: (B,) int64}, (B, M) int64)`` of int32-wrapped values)
+and :func:`oracle_verdict_ref` are the plain PyTorch versions, on any
+device.
 
 The semantics are those of ``fuzz/engine.py::_batched_interpret`` op for
 op, written from its ``_alu_vec`` and not from the PE array's ALU: the
@@ -31,7 +31,7 @@ port moved it to the card because it set the pace of the fuzz path.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -74,7 +74,7 @@ _M32 = (1 << 32) - 1
 
 @dataclass
 class OracleTable:
-    """A CIL program compiled for :func:`oracle`.  ``nodes`` (N, RECORD)
+    """A CIL program compiled for the oracle kernel.  ``nodes`` (N, RECORD)
     int32 in topological order; ``carry_update`` (C,) the slot (position
     in that order) each carry takes after an iteration, ``carry_init`` (C,)
     its value before the first; one carry slot per distinct update node,
@@ -274,8 +274,10 @@ def _interpret(table: OracleTable, mems: torch.Tensor
 
 def oracle_ref(table: OracleTable, mems: torch.Tensor
                ) -> Tuple[Dict[int, np.ndarray], np.ndarray]:
-    """The plain version of :func:`oracle`, on ``mems``' device.  Returns
-    host numpy, as :func:`oracle` does."""
+    """The oracle of ``table`` over ``mems`` (B, M) in plain PyTorch, on
+    their device: ``({nid: (B,) int64}, (B, M) int64)`` in host numpy, as
+    ``fuzz.engine.batched_oracle`` returns them (no node values when the
+    trip is 0)."""
     vals, img = _interpret(table, mems)
     node_vals = ({nid: vals[pos].cpu().numpy()
                   for pos, nid in enumerate(table.node_ids)}
@@ -284,9 +286,9 @@ def oracle_ref(table: OracleTable, mems: torch.Tensor
 
 
 class OracleVerdict(NamedTuple):
-    """What :func:`oracle_verdict` returns.  Only ``bad`` is on the host;
-    the oracle's results stay on the device, for the rows a caller asks
-    about."""
+    """What :func:`oracle_verdict` returns.  ``bad`` is on the host; the
+    oracle's results stay on the operands' device, for the rows a caller
+    asks about."""
 
     bad: np.ndarray        # (B,) bool: the memory's result differs
     image: torch.Tensor    # (B, M) int64, the oracle's final images
@@ -366,19 +368,18 @@ def _check_operand(what: str, x: torch.Tensor, device: torch.device,
                          f"{tuple(x.shape)} on {x.device}")
 
 
-def enqueue(table: OracleTable, mems: torch.Tensor, sim=None
-            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One ``oracle_kernel`` launch over ``mems``, not waited for:
-    :func:`oracle`'s launch, or with ``sim = (sim_image, sim_vals,
-    sim_slots)`` :func:`oracle_verdict`'s.  Returns the device
-    buffer (the images, the node values, and without ``sim`` the error
-    word) and, with ``sim``, the verdict words followed by the error word,
-    both set for an empty batch without a launch.  ``oracle.launches``
-    counts every launch, ``oracle.verdicts`` those with the epilogue."""
+def enqueue(table: OracleTable, mems: torch.Tensor, sim_image: torch.Tensor,
+            sim_vals: torch.Tensor, sim_slots: Sequence[int]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ``oracle_kernel`` launch of :func:`oracle_verdict`, not waited
+    for.  Returns the device buffer (the oracle's images, then its node
+    values) and the verdict words followed by the error word, both set
+    for an empty batch without a launch.  ``oracle_verdict.launches``
+    counts the launches."""
     device = mems.device
     if device.type != "cuda":
-        raise ValueError(f"oracle runs on a CUDA device, not {device}; "
-                         f"oracle_ref is the plain version")
+        raise ValueError(f"oracle_verdict runs on a CUDA device, not "
+                         f"{device}; oracle_verdict_ref is its plain version")
     if mems.dtype != torch.int32 or mems.dim() != 2 \
             or not mems.is_contiguous():
         raise ValueError(f"mems: expected a contiguous (B, M) int32 tensor, "
@@ -386,95 +387,50 @@ def enqueue(table: OracleTable, mems: torch.Tensor, sim=None
     B, M = mems.shape
     N, C = table.nodes.shape[0], table.carry_update.shape[0]
     threads, shared, image = oracle_geometry(N, C, M)
-    lib = build.oracle_library()
-    if sim is None:
-        out = torch.empty(B * M + N * B + 1, dtype=torch.int64,
-                          device=device)
-        if not B:
-            out[-1] = NO_ERROR
-            return out, None
-        status = lib.oracle_run(
-            table.on_device(device).data_ptr(), mems.data_ptr(),
-            out.data_ptr(), N, C, table.trip, B, M, threads, shared, image,
-            _stream(device))
-        words = None
-    else:
-        sim_image, sim_vals, slots = sim
-        slots = _slot_list(table, sim_vals, slots)
-        if not slots:
-            sim_vals = sim_vals[:0]
-        _check_operand("sim_image", sim_image, device, (B, M))
-        _check_operand("sim_vals", sim_vals, device, (len(slots), B))
-        out = torch.empty(B * M + N * B, dtype=torch.int64, device=device)
-        pad = B + (B & 1)
-        words = torch.empty(pad + 2, dtype=torch.int32, device=device)
-        if not B:
-            words[pad:] = NO_ERROR
-            return out, words
-        status = lib.oracle_verdict_run(
-            table.on_device(device).data_ptr(), mems.data_ptr(),
-            out.data_ptr(), sim_image.data_ptr(), sim_vals.data_ptr(),
-            table.slots_on_device(slots, device).data_ptr(),
-            words.data_ptr(), len(slots), N, C, table.trip, B, M, threads,
-            shared, image, _stream(device))
+    slots = _slot_list(table, sim_vals, sim_slots)
+    if not slots:
+        sim_vals = sim_vals[:0]
+    _check_operand("sim_image", sim_image, device, (B, M))
+    _check_operand("sim_vals", sim_vals, device, (len(slots), B))
+    out = torch.empty(B * M + N * B, dtype=torch.int64, device=device)
+    pad = B + (B & 1)
+    words = torch.empty(pad + 2, dtype=torch.int32, device=device)
+    if not B:
+        words[pad:] = NO_ERROR
+        return out, words
+    status = build.oracle_library().oracle_verdict_run(
+        table.on_device(device).data_ptr(), mems.data_ptr(), out.data_ptr(),
+        sim_image.data_ptr(), sim_vals.data_ptr(),
+        table.slots_on_device(slots, device).data_ptr(), words.data_ptr(),
+        len(slots), N, C, table.trip, B, M, threads, shared, image,
+        _stream(device))
     if status != 0:
         raise RuntimeError(f"oracle launch failed: cudaError {status}")
-    oracle.launches += 1
-    if sim is not None:
-        oracle.verdicts += 1
+    oracle_verdict.launches += 1
     return out, words
-
-
-def oracle(table: OracleTable, mems: torch.Tensor
-           ) -> Tuple[Dict[int, np.ndarray], np.ndarray]:
-    """The oracle of ``table`` over ``mems``, a contiguous (B, M) int32
-    tensor: ``({nid: (B,) int64}, (B, M) int64)`` on the host, int32
-    values, node values of the last iteration (none when the trip is 0).
-
-    One ``oracle_kernel`` launch into one device buffer (the final images,
-    the node values and an error word), one copy of it into pinned host
-    memory and one wait; the returned arrays are views of that copy, which
-    no later call reuses while they live.  An address outside ``[0, M)``
-    raises the numpy oracle's ``IndexError`` for the first such access in
-    (iteration, node order).  ``mems`` must be on a CUDA device: there is
-    no fallback (:func:`oracle_ref` is the plain version).
-    ``oracle.launches`` counts the launches."""
-    out, _ = enqueue(table, mems)
-    B, M = mems.shape
-    N = table.nodes.shape[0]
-    host = torch.empty(out.shape, dtype=torch.int64, pin_memory=True)
-    host.copy_(out, non_blocking=True)
-    torch.cuda.current_stream(mems.device).synchronize()
-    flat = host.numpy()
-    if flat[-1] != NO_ERROR:
-        raise table.address_error(int(flat[-1]), M)
-    final = flat[:B * M].reshape(B, M)
-    per_node = flat[B * M:B * M + N * B].reshape(N, B)
-    node_vals = ({nid: per_node[pos]
-                  for pos, nid in enumerate(table.node_ids)}
-                 if table.trip > 0 else {})
-    return node_vals, final
 
 
 def oracle_verdict(table: OracleTable, mems: torch.Tensor,
                    sim_image: torch.Tensor, sim_vals: torch.Tensor,
                    sim_slots: Sequence[int]) -> OracleVerdict:
-    """:func:`oracle` over ``mems`` with the simulator's result compared
-    on the card: ``sim_image`` (B, M) int32, its final images, and
-    ``sim_vals`` (K, B) int32, its last-iteration values of the nodes at
-    table slots ``sim_slots``, both contiguous on ``mems``' device.  A
-    memory is bad where an image word or one of those node values differs
-    from the oracle's in its low 32 bits, as in
-    ``fuzz.engine.compare_batch``; where the trip is 0 only the images are
-    compared, as the oracle has no node values then.
+    """The oracle of ``table`` over ``mems``, a contiguous (B, M) int32
+    tensor on a CUDA device, with the simulator's result compared on the
+    card: ``sim_image`` (B, M) int32, its final images, and ``sim_vals``
+    (K, B) int32, its last-iteration values of the nodes at table slots
+    ``sim_slots``, both contiguous on ``mems``' device.  A memory is bad
+    where an image word or one of those node values differs from the
+    oracle's in its low 32 bits, as in ``fuzz.engine.compare_batch``;
+    where the trip is 0 only the images are compared, as the oracle has
+    no node values then.
 
-    One launch with the verdict epilogue, one copy of the (B,) verdict
-    words and the error word into pinned host memory and one wait; the
-    oracle's images and node values stay on the device, in the returned
-    :class:`OracleVerdict`.  An address outside ``[0, M)`` raises
-    :func:`oracle`'s ``IndexError``.  ``oracle.verdicts`` counts these
-    launches (``oracle.launches`` too)."""
-    out, words = enqueue(table, mems, (sim_image, sim_vals, sim_slots))
+    One launch, one copy of the (B,) verdict words and the error word
+    into pinned host memory and one wait; the oracle's images and
+    last-iteration node values (int32 values in int64) stay on the device,
+    in the returned :class:`OracleVerdict`.  An address outside ``[0, M)``
+    raises the numpy oracle's ``IndexError`` for the first such access in
+    (iteration, node order).  There is no fallback:
+    :func:`oracle_verdict_ref` is the plain version."""
+    out, words = enqueue(table, mems, sim_image, sim_vals, sim_slots)
     B, M = mems.shape
     N = table.nodes.shape[0]
     host = torch.empty(words.shape, dtype=torch.int32, pin_memory=True)
@@ -489,5 +445,4 @@ def oracle_verdict(table: OracleTable, mems: torch.Tensor,
                          out[B * M:].view(N, B))
 
 
-oracle.launches = 0
-oracle.verdicts = 0
+oracle_verdict.launches = 0

@@ -1,8 +1,9 @@
 """The CUDA kernels (the whole-program run, single and stacked, the
 cycle step, its one-row launch, and the fuzz oracle) against their plain
-PyTorch versions (the oracle also against the numpy oracle, its verdict
-epilogue against ``compare_batch``), and
-the fuzz path's stacked run, activity harvest and triage, a kernel the
+PyTorch versions (the oracle's images and node values also against the
+numpy oracle, its verdict against ``compare_batch``), and
+the fuzz path's stacked run, activity harvest and triage (each judged by
+one oracle launch a kernel or probe), a kernel the
 port mapped itself, and the
 traced front-end's co-simulation, swept points of the size ladder, a
 heuristic-baseline mapping and a mapping the compile server served,
@@ -38,7 +39,7 @@ from repro_torch.cgra.isa import OPCODE  # noqa: E402
 from repro_torch.kernels.pe_array import (  # noqa: E402
     LANE_LAYOUT, UNIFORM_LAYOUT, cycle_step, lanes_fit, run_cycles)
 from repro_torch.kernels.oracle import (  # noqa: E402
-    compile_oracle, oracle, oracle_ref, oracle_verdict, oracle_verdict_ref)
+    compile_oracle, oracle_ref, oracle_verdict, oracle_verdict_ref)
 from repro_torch.kernels.sample import (  # noqa: E402
     HAZARDS, OUT_OF_RANGE, VERDICT_FAULTS, first_error_case, hazard_fields,
     oracle_edge_mems, oracle_edges, out_of_range_program, random_fields,
@@ -786,6 +787,19 @@ SHIPPED_ARTIFACTS = [(arch, name) for arch in ("4x4", "3x3")
 ORACLE_BATCHES = (1, 33, 1024, 16384)
 
 
+def _oracle(table, mems):
+    """The oracle kernel's node values and images over ``mems`` (a CUDA
+    tensor) as ``oracle_ref`` gives them: one ``oracle_verdict`` launch
+    that takes the input images for the simulator's and compares no
+    node."""
+    got = oracle_verdict(table, mems, mems,
+                         torch.zeros((0, mems.shape[0]), dtype=torch.int32,
+                                     device=mems.device), [])
+    vals = got.vals.cpu().numpy()
+    return ({nid: vals[pos] for pos, nid in enumerate(table.node_ids)}
+            if table.trip > 0 else {}), got.image.cpu().numpy()
+
+
 def _oracle_same(got, want, tag):
     (gv, gm), (wv, wm) = got, want
     assert list(gv) == list(wv), tag
@@ -804,9 +818,9 @@ def test_oracle_kernel_matches_plain_version_and_numpy(cuda, arch, kernel):
     table = art.oracle_table
     for B in ORACLE_BATCHES:
         mems = tiled_corpus(art, B)
-        before = oracle.launches
-        got = oracle(table, torch.as_tensor(mems, device=cuda))
-        assert oracle.launches == before + 1
+        before = oracle_verdict.launches
+        got = _oracle(table, torch.as_tensor(mems, device=cuda))
+        assert oracle_verdict.launches == before + 1
         _oracle_same(got, oracle_ref(table, torch.as_tensor(mems)), B)
         _oracle_same(got, batched_oracle(art.program, mems), B)
 
@@ -823,7 +837,7 @@ def test_oracle_kernel_on_hand_built_edges(cuda, trip, B, M):
     program = oracle_edges(LoopBuilder, trip)
     table = compile_oracle(program)
     mems = oracle_edge_mems(B, M, seed=trip * 7 + B)
-    got = oracle(table, torch.as_tensor(mems, device=cuda))
+    got = _oracle(table, torch.as_tensor(mems, device=cuda))
     _oracle_same(got, oracle_ref(table, torch.as_tensor(mems)), (trip, B))
     _oracle_same(got, batched_oracle(program, mems), (trip, B))
 
@@ -840,7 +854,7 @@ def test_oracle_kernel_raises_the_numpy_address_error(cuda, kind):
     with pytest.raises(IndexError) as want:
         batched_oracle(program, mems)
     with pytest.raises(IndexError) as got:
-        oracle(compile_oracle(program), torch.as_tensor(mems, device=cuda))
+        _oracle(compile_oracle(program), torch.as_tensor(mems, device=cuda))
     assert str(got.value) == str(want.value)
 
 
@@ -850,16 +864,17 @@ def test_oracle_kernel_names_the_first_bad_access_over_all_memories(cuda):
     program, mems, text = first_error_case(LoopBuilder)
     wide = np.concatenate([np.zeros((200, 8), np.int32), mems])
     with pytest.raises(IndexError, match=re.escape(text)):
-        oracle(compile_oracle(program), torch.as_tensor(wide, device=cuda))
+        _oracle(compile_oracle(program), torch.as_tensor(wide, device=cuda))
 
 
 def test_oracle_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     table = load_artifact("4x4", "gsm").oracle_table
     mems = torch.zeros((4, 128), dtype=torch.int32, device=cuda)
+    none = torch.zeros((0, 4), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="int32"):
-        oracle(table, mems.to(torch.int64))
+        oracle_verdict(table, mems.to(torch.int64), mems, none, [])
     with pytest.raises(ValueError, match="contiguous"):
-        oracle(table, mems.t())
+        oracle_verdict(table, mems.t(), mems, none, [])
 
 
 def _faulty(art):
@@ -888,13 +903,13 @@ def test_fuzz_program_verdicts_equal_with_the_oracle_kernel(
         art = _faulty(art)
     mems = make_corpus(art, 700, seed=4)
     cpu = fuzz_program(art, mems, batch=256, device="cpu")
-    before = oracle.launches
+    before = oracle_verdict.launches
     obs_trace.enable(str(tmp_path / "trace"))
     try:
         card = fuzz_program(art, mems, batch=256, device=cuda)
     finally:
         obs_trace.disable()
-    assert oracle.launches - before == 3
+    assert oracle_verdict.launches - before == 3
     assert (card.status, card.failing, card.mismatches, card.activity) == (
         cpu.status, cpu.failing, cpu.mismatches, cpu.activity)
     assert (card.status == "mismatch") == fault
@@ -945,11 +960,10 @@ def test_oracle_verdict_matches_compare_batch(cuda, fault, B, M):
     ov, om = batched_oracle(program, mems)
     vals, sim_mem = verdict_case(ov, om, fault,
                                  {0, 31, 32, 33, B // 2, B - 2, B - 1})
-    before = (oracle.launches, oracle.verdicts)
+    before = oracle_verdict.launches
     got, ref, nodes, slots = _verdict_on_card(cuda, table, mems, vals,
                                               sim_mem)
-    assert (oracle.launches, oracle.verdicts) == (before[0] + 1,
-                                                  before[1] + 1)
+    assert oracle_verdict.launches == before + 1
     np.testing.assert_array_equal(got.bad, compare_batch(vals, sim_mem, ov,
                                                          om))
     np.testing.assert_array_equal(got.bad, ref.bad)
@@ -1014,11 +1028,11 @@ def test_oracle_verdict_raises_the_numpy_address_error(cuda, kind):
 def test_oracle_verdict_takes_an_empty_batch_and_refuses_bad_operands(cuda):
     table = load_artifact("4x4", "gsm").oracle_table
     empty = torch.zeros((0, 128), dtype=torch.int32, device=cuda)
-    before = oracle.verdicts
+    before = oracle_verdict.launches
     got = oracle_verdict(table, empty, empty,
                          torch.zeros((1, 0), dtype=torch.int32, device=cuda),
                          [0])
-    assert got.bad.shape == (0,) and oracle.verdicts == before
+    assert got.bad.shape == (0,) and oracle_verdict.launches == before
     mems = torch.zeros((4, 128), dtype=torch.int32, device=cuda)
     vals = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="sim_image"):
@@ -1048,13 +1062,13 @@ def test_fuzz_program_copies_back_only_the_failing_rows(cuda, tmp_path, arch,
         art = _faulty(art)
     mems = make_corpus(art, 2048, seed=8)
     cpu = fuzz_program(art, mems, batch=1024, device="cpu")
-    before = oracle.verdicts
+    before = oracle_verdict.launches
     obs_trace.enable(str(tmp_path / "trace"))
     try:
         card = fuzz_program(art, mems, batch=1024, device=cuda)
     finally:
         obs_trace.disable()
-    assert oracle.verdicts - before == 2
+    assert oracle_verdict.launches - before == 2
     assert (card.status, card.failing, card.mismatches, card.activity) == (
         cpu.status, cpu.failing, cpu.mismatches, cpu.activity)
     attrs = _compare_attrs(tmp_path / "trace")
@@ -1064,3 +1078,61 @@ def test_fuzz_program_copies_back_only_the_failing_rows(cuda, tmp_path, arch,
         assert card.failing and 0 < rows_back <= _MISMATCH_SAMPLE_CAP
     else:
         assert not card.failing and rows_back == 0
+
+
+def test_fuzz_stacked_launches_the_oracle_once_a_kernel(cuda):
+    """On the card each kernel of a stack is judged by one oracle launch,
+    and the reports equal the CPU's, a faulty kernel among them."""
+    arts = [load_artifact("4x4", k) for k in ("dotprod", "gsm", "stencil3")]
+    arts[1] = _faulty(arts[1])
+    mems = np.stack([make_corpus(a, 300, seed=2) for a in arts])
+    before = oracle_verdict.launches
+    card = fuzz_stacked(arts, mems, device=cuda)
+    assert oracle_verdict.launches - before == len(arts)
+    cpu = fuzz_stacked(arts, mems, device="cpu")
+    assert [r.status for r in card] == ["ok", "mismatch", "ok"]
+    assert [(r.kernel, r.status, r.ii, r.failing, r.mismatches)
+            for r in card] == [(r.kernel, r.status, r.ii, r.failing,
+                                r.mismatches) for r in cpu]
+    assert all(r.backend == "cuda" for r in card)
+
+
+def test_shrink_on_the_card_launches_the_oracle_once_a_probe(cuda, tmp_path):
+    """Triage on the card: ``engine_check`` gives the CPU's mask in one
+    oracle launch a probe, ``shrink`` reaches the CPU's memory in as many
+    probes, and ``triage_failure`` (those probes and one launch for the
+    reproducer's lines) writes the CPU's reproducer but for ``backend``."""
+    import json
+
+    from repro_torch.fuzz.triage import engine_check, shrink, triage_failure
+
+    art = _faulty(load_artifact("4x4", "gsm"))
+    mems = make_corpus(art, 512, seed=3)
+    checks = {"cuda": engine_check(art, device=cuda),
+              "ref": engine_check(art, device="cpu")}
+    before = oracle_verdict.launches
+    mask = checks["cuda"](mems)
+    assert oracle_verdict.launches - before == 1
+    np.testing.assert_array_equal(mask, checks["ref"](mems))
+    failing = np.nonzero(mask)[0]
+    assert failing.size
+    before = oracle_verdict.launches
+    card = shrink(mems[failing], checks["cuda"], indices=failing)
+    assert oracle_verdict.launches - before == card[2]
+    cpu = shrink(mems[failing], checks["ref"], indices=failing)
+    np.testing.assert_array_equal(card[0], cpu[0])
+    assert card[1:] == cpu[1:]
+    launches, docs = {}, {}
+    for name, dev in (("cuda", cuda), ("ref", "cpu")):
+        rep = fuzz_program(art, mems, batch=512, device=dev,
+                           collect_activity=False)
+        assert rep.failing == failing.tolist()
+        before = oracle_verdict.launches
+        triage_failure(art, mems, rep, device=dev,
+                       out_dir=str(tmp_path / name))
+        launches[name] = oracle_verdict.launches - before
+        docs[name] = json.loads(open(rep.reproducer).read())
+    assert launches == {"cuda": card[2] + 1, "ref": 0}
+    assert docs["cuda"].pop("backend") == "cuda"
+    assert docs["ref"].pop("backend") == "ref"
+    assert docs["cuda"] == docs["ref"] and docs["cuda"]["mismatches"]

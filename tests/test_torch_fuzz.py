@@ -2,8 +2,9 @@
 oracle, fuzz verdicts, mismatch strings and switching activity (also under
 an injected fault), ``fuzz_kernel`` mapping live (mapped and unmapped
 kernels), and the CLI digest with activity and energy, also with
-``--shrink``; and the card path's assembly of mismatch lines from the
-failing rows alone, on CPU tensors, against the full-batch path.
+``--shrink``; and the verdict step (its gather, its verdict and the card's
+form of it, and the mismatch lines from the failing rows alone), on CPU
+tensors, against the full-batch path.
 Everything runs on the CPU with exact equality.
 """
 import dataclasses
@@ -246,12 +247,13 @@ def test_fuzz_kernel_reports_an_unmapped_kernel_as_jax_does():
 @pytest.mark.parametrize("lo,before", [(0, 0), (4096, 5)])
 def test_failing_rows_give_the_full_batch_mismatch_lines(arch, kernel, fault,
                                                          lo, before):
-    """What the card path copies back and builds, on CPU tensors: the
-    verdict mask of ``oracle_verdict_ref`` equals ``compare_batch``, and
-    the mismatch lines built from the failing rows alone equal the
-    full-batch path's, for a chunk at corpus index ``lo`` and a sample
-    that already holds ``before`` lines; at most the sample's cap of rows
-    comes back."""
+    """The verdict step on CPU tensors, with its own verdict and with
+    ``oracle_verdict_ref``'s (the card's form, at the table's slots, which
+    the step's slots equal): each mask equals ``compare_batch`` over every
+    last-iteration node, and the mismatch lines built from the failing
+    rows alone equal the full-batch path's, for a chunk at corpus index
+    ``lo`` and a sample that already holds ``before`` lines; at most the
+    sample's cap of rows comes back."""
     art = load_artifact(arch, kernel)
     if fault:
         art = dataclasses.replace(art, asm=port_inject(art.asm)[0])
@@ -270,27 +272,27 @@ def test_failing_rows_give_the_full_batch_mismatch_lines(arch, kernel, fault,
                 program, sim_vals, sim_mem, ov, om, int(i), label=lo + int(i)
             )[:engine._MISMATCH_SAMPLE_CAP])
 
+    step = engine._VerdictStep(art, torch.device("cpu"))
     table = art.oracle_table
-    slot_of = {n: i for i, n in enumerate(table.node_ids)}
-    nodes, ts, pes = engine.last_cells(art.asm, program.trip, keep=slot_of)
-    slots = [slot_of[n] for n in nodes]
-    sim = outs[torch.tensor(ts), :, torch.tensor(pes)].contiguous()
-    verdict = oracle_verdict_ref(table, torch.as_tensor(mems), final.mem,
-                                 sim, slots)
-    np.testing.assert_array_equal(verdict.bad, bad)
-    got = ["earlier line"] * before
-    back = engine.failing_row_mismatches(
-        program, nodes, slots, sim, final.mem, verdict,
-        np.nonzero(verdict.bad)[0], lo, got)
-    assert got == want
+    assert step.slots == tuple(table.node_ids.index(n) for n in step.nodes)
+    sim = step.gather(outs)
+    for verdict in (step.judge(mems, final.mem, sim),
+                    oracle_verdict_ref(table, torch.as_tensor(mems),
+                                       final.mem, sim, step.slots)):
+        np.testing.assert_array_equal(verdict.bad, bad)
+        got = ["earlier line"] * before
+        back = step.mismatches(sim, final.mem, verdict,
+                               np.nonzero(verdict.bad)[0], lo, got)
+        assert got == want
+        assert back <= engine._MISMATCH_SAMPLE_CAP - before
+        assert (back > 0) == fault
     assert bad.any() == fault
-    assert back <= engine._MISMATCH_SAMPLE_CAP - before
-    assert (back > 0) == fault
 
 
 def test_last_cells_keep_the_dict_order_of_the_trace_gather():
     """One cell a node, in the order and with the values of
-    ``node_values_from_outs``'s dict, also where a node holds two cells."""
+    ``node_values_from_outs``'s dict, also where a node holds two cells;
+    the verdict step gathers the same values in that order."""
     art = load_artifact("4x4", "gsm")
     asm = dataclasses.replace(art.asm, node_of_cell=dict(
         art.asm.node_of_cell))
@@ -308,5 +310,12 @@ def test_last_cells_keep_the_dict_order_of_the_trace_gather():
     assert (ts[nodes.index(n0)], pes[nodes.index(n0)]) == spare
     for n, t, pe in zip(nodes, ts, pes):
         np.testing.assert_array_equal(vals[n], outs[t, :, pe].numpy())
+    step = engine._VerdictStep(dataclasses.replace(art, asm=asm),
+                               torch.device("cpu"))
+    assert step.nodes == nodes
+    gathered = step.gather(outs)
+    assert tuple(gathered.shape) == (len(nodes), 3)
+    for k, n in enumerate(nodes):
+        np.testing.assert_array_equal(gathered[k].numpy(), vals[n])
     kept = engine.last_cells(asm, art.program.trip, keep={n0})
     assert kept == ((n0,), (spare[0],), (spare[1],))

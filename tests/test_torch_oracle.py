@@ -8,8 +8,9 @@ error's text; the refusal of constants beyond 32 bits; the launch shape;
 ``fuzz_program``'s oracle span on the CPU; and ``oracle_verdict_ref``
 against ``compare_batch`` with differences planted in the images, the
 node values, both or neither.  Everything runs on the CPU with exact
-equality; the kernel itself is held to ``oracle_ref`` and
-``compare_batch`` on the card by ``tests/test_torch_cuda.py``.
+equality; the kernel itself is held to ``oracle_ref``,
+``oracle_verdict_ref`` and ``compare_batch`` on the card by
+``tests/test_torch_cuda.py``.
 """
 import json
 from pathlib import Path
@@ -233,14 +234,17 @@ def test_launch_shape_refuses_what_no_block_holds():
 
 
 def test_oracle_refuses_a_cpu_tensor():
-    """The kernel's wrapper has no fallback: the CPU takes ``oracle_ref``
-    (here equal to the numpy oracle) or ``batched_oracle``."""
+    """The kernel's wrapper has no fallback: the CPU takes
+    ``oracle_verdict_ref``, ``oracle_ref`` (here equal to the numpy
+    oracle) or ``batched_oracle``."""
     art = load_artifact("4x4", "gsm")
     mems = make_corpus(art, 10, seed=3)
-    before = ko.oracle.launches
-    with pytest.raises(ValueError, match="oracle_ref"):
-        ko.oracle(art.oracle_table, torch.as_tensor(mems))
-    assert ko.oracle.launches == before
+    before = ko.oracle_verdict.launches
+    cpu = torch.as_tensor(mems)
+    with pytest.raises(ValueError, match="oracle_verdict_ref"):
+        ko.oracle_verdict(art.oracle_table, cpu, cpu,
+                          torch.zeros((0, 10), dtype=torch.int32), [])
+    assert ko.oracle_verdict.launches == before
     _assert_same(ko.oracle_ref(art.oracle_table, torch.as_tensor(mems)),
                  engine.batched_oracle(art.program, mems))
 
@@ -362,7 +366,7 @@ def test_verdict_operands_are_checked():
         ko.oracle_verdict_ref(table, mems, mems, vals, [0, N])
     with pytest.raises(ValueError, match=r"expected \(1, B\)"):
         ko.oracle_verdict_ref(table, mems, mems, vals, [0])
-    before = (ko.oracle.launches, ko.oracle.verdicts)
-    with pytest.raises(ValueError, match="oracle_ref"):
+    before = ko.oracle_verdict.launches
+    with pytest.raises(ValueError, match="oracle_verdict_ref"):
         ko.oracle_verdict(table, mems, mems, vals, [0, 1])
-    assert (ko.oracle.launches, ko.oracle.verdicts) == before
+    assert ko.oracle_verdict.launches == before
