@@ -64,6 +64,13 @@ class AssembledCIL:
         """The decoded instruction grid, rows x PEs."""
         return decode_program(self.bitstream)
 
+    @cached_property
+    def device_programs(self) -> Dict:
+        """What ``simulator.device_program`` built of this bitstream, by
+        (device, PEs).  It lives with the words: a copy made with other
+        words (``dataclasses.replace``) starts with none."""
+        return {}
+
     @property
     def total_rows(self) -> int:
         return int(self.bitstream.shape[0])

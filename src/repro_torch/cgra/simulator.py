@@ -10,14 +10,17 @@ assembled into its artifact first, so both run the same path.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, NamedTuple, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..kernels.ops import decode_fields, init_state, run_program
-from ..kernels.ref import PEState
+from ..device import resolve_device
+from ..kernels.ops import (decode_fields, device_image, neighbor_tensor,
+                           run_program)
+from ..kernels.ref import InstrRow, PEState
 from .arch import PEGrid, neighbor_table
 from .artifact import Artifact
 from .bitstream import AssembledCIL
@@ -73,37 +76,88 @@ def preset_arrays(asm: AssembledCIL, num_pes: int
     return out0, regs0
 
 
-def preset_state(asm: AssembledCIL, num_pes: int, mem: np.ndarray,
+class DeviceProgram(NamedTuple):
+    """What every launch of one bitstream reads besides its memories, on
+    one device: built once by :func:`device_program`."""
+    fields: InstrRow        # (T, P) int32 decoded words
+    out0: torch.Tensor      # (P,) OUT presets
+    regs0: torch.Tensor     # (P, 4) register presets
+    source: tuple           # the words and presets it was built from
+
+
+def device_program(asm: AssembledCIL, num_pes: int, device="cuda"
+                   ) -> DeviceProgram:
+    """The decoded words and the preset tables of ``asm`` on ``device``,
+    built on the first call for each (device, ``num_pes``) and kept in
+    ``asm.device_programs``; a bitstream or presets assigned to ``asm``
+    since are built anew.  ``device_program.builds`` counts the builds."""
+    dev = resolve_device(device)
+    source = (asm.bitstream, asm.presets_out, asm.presets_reg)
+    prog = asm.device_programs.get((dev, num_pes))
+    if prog is None or any(a is not b for a, b in zip(prog.source, source)):
+        out0, regs0 = preset_arrays(asm, num_pes)
+        prog = DeviceProgram(decode_fields(asm.words(), dev),
+                             torch.as_tensor(out0, device=dev),
+                             torch.as_tensor(regs0, device=dev), source)
+        asm.device_programs[(dev, num_pes)] = prog
+        device_program.builds += 1
+    return prog
+
+
+device_program.builds = 0
+
+
+@functools.lru_cache(maxsize=64)
+def device_neighbors(grid: PEGrid, device="cuda") -> torch.Tensor:
+    """``grid``'s checked (P, 4) neighbour table on ``device``, made once
+    per (grid, device)."""
+    return neighbor_tensor(neighbor_table(grid), grid.num_pes, device)
+
+
+def preset_state(asm: AssembledCIL, num_pes: int, mem,
                  batch: int, device="cuda") -> PEState:
-    """Initial PE-array state for ``asm``: zeros plus the register/output
-    presets of :func:`preset_arrays` in every batch row."""
-    out0, regs0 = preset_arrays(asm, num_pes)
-    state = init_state(batch, num_pes, mem, device)
-    dev = state.mem.device
-    return state._replace(
-        out=torch.as_tensor(np.repeat(out0[None], batch, 0), device=dev),
-        regs=torch.as_tensor(np.repeat(regs0[None], batch, 0), device=dev))
+    """Initial PE-array state for ``asm`` over ``mem`` (a host array or a
+    tensor, as :func:`~repro_torch.kernels.ops.device_image` takes it):
+    zeros plus the register/output presets of :func:`preset_arrays` in
+    every batch row, broadcast on the device from :func:`device_program`."""
+    prog = device_program(asm, num_pes, device)
+    image = device_image(mem, batch, device)
+    flags = torch.zeros((2, batch, num_pes), dtype=torch.int32,
+                        device=image.device)
+    return PEState(regs=prog.regs0.expand(batch, num_pes, 4).contiguous(),
+                   out=prog.out0.expand(batch, num_pes).contiguous(),
+                   sf=flags[0], zf=flags[1], mem=image)
 
 
 def stacked_preset_state(asms: Sequence[AssembledCIL], num_pes: int,
-                         mems: np.ndarray, device="cuda") -> PEState:
+                         mems, device="cuda") -> PEState:
     """Initial state of K bitstreams of one grid over (K, B, M) memories:
     the :func:`preset_state` of each on a leading K axis."""
-    states = [preset_state(asm, num_pes, mem, len(mem), device)
-              for asm, mem in zip(asms, mems)]
-    return PEState(*(torch.stack(ts) for ts in zip(*states)))
+    progs = [device_program(asm, num_pes, device) for asm in asms]
+    image = device_image(mems, mems.shape[-2], device).contiguous()
+    K, B = image.shape[:2]
+    flags = torch.zeros((2, K, B, num_pes), dtype=torch.int32,
+                        device=image.device)
+    return PEState(
+        regs=torch.stack([p.regs0 for p in progs])[:, None].expand(
+            K, B, num_pes, 4).contiguous(),
+        out=torch.stack([p.out0 for p in progs])[:, None].expand(
+            K, B, num_pes).contiguous(),
+        sf=flags[0], zf=flags[1], mem=image)
 
 
-def execute_asm(asm: AssembledCIL, grid: PEGrid, mem: np.ndarray,
+def execute_asm(asm: AssembledCIL, grid: PEGrid, mem,
                 batch: int = 1, device="cuda"
                 ) -> Tuple[PEState, torch.Tensor, torch.Tensor]:
-    """Run an assembled CIL over ``batch`` memories.  Returns
-    ``(final_state, outs (T, B, P), out0 (B, P))`` as tensors on
-    ``device``: the shared execution seam under :func:`simulate` and the
-    fuzzing engine."""
-    fields = decode_fields(asm.words(), device)
+    """Run an assembled CIL over ``batch`` memories (``mem`` a host array or
+    a tensor on ``device``, used as it is).  Returns ``(final_state, outs
+    (T, B, P), out0 (B, P))`` as tensors on ``device``: the shared
+    execution seam under :func:`simulate` and the fuzzing engine.  The
+    words, presets and neighbour table come from the device, built once."""
     state = preset_state(asm, grid.num_pes, mem, batch, device)
-    final, outs = run_program(fields, state, neighbor_table(grid), device)
+    final, outs = run_program(device_program(asm, grid.num_pes,
+                                             device).fields,
+                              state, device_neighbors(grid, device), device)
     return final, outs, state.out
 
 

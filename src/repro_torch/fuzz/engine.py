@@ -34,16 +34,16 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..cgra.arch import neighbor_table
 from ..cgra.artifact import Artifact
 from ..cgra.bitstream import AssembledCIL
 from ..cgra.energy import runtime_metrics
 from ..cgra.isa import FXP_FRAC_BITS, NOP
 from ..cgra.programs import LoopBuilder, Val
-from ..cgra.simulator import execute_asm, stacked_preset_state
+from ..cgra.simulator import (device_neighbors, execute_asm,
+                              stacked_preset_state)
 from ..device import resolve_device
 from ..kernels.oracle import OracleVerdict, oracle_verdict
-from ..kernels.ops import decode_fields, run_program
+from ..kernels.ops import decode_fields, device_image, run_program
 from ..kernels.pe_array import run_cycles
 from ..kernels.ref import InstrRow, PEState
 from ..obs import trace as obs_trace
@@ -324,21 +324,20 @@ class _VerdictStep:
         P): (K, B) on its device, in :attr:`nodes` order."""
         return outs[self.cells].contiguous()
 
-    def judge(self, mems: np.ndarray, sim_mem: torch.Tensor,
+    def judge(self, mems: torch.Tensor, sim_mem: torch.Tensor,
               sim_vals: torch.Tensor) -> OracleVerdict:
-        """The oracle over ``mems`` (B, M) and the memories whose final
-        image ``sim_mem`` or values ``sim_vals`` (from :meth:`gather`)
-        differ from it.  On the card one
-        :func:`~repro_torch.kernels.oracle.oracle_verdict` launch on its
-        own device copy of ``mems``; on the CPU :func:`batched_oracle` and
+        """The oracle over ``mems``, the (B, M) int32 images the run
+        started from, on the step's device (on the card the very tensor
+        the PE array read), and the memories whose final image ``sim_mem``
+        or values ``sim_vals`` (from :meth:`gather`) differ from it.  On
+        the card one :func:`~repro_torch.kernels.oracle.oracle_verdict`
+        launch; on the CPU :func:`batched_oracle` and
         :func:`compare_batch`, the JAX package's contract, with the
         oracle's images and values a slot as CPU tensors."""
         if self.table is not None:
-            return oracle_verdict(
-                self.table, torch.as_tensor(np.ascontiguousarray(mems),
-                                            device=self.dev),
-                sim_mem.contiguous(), sim_vals, self.slots)
-        vals, image = batched_oracle(self.program, mems)
+            return oracle_verdict(self.table, mems.contiguous(),
+                                  sim_mem.contiguous(), sim_vals, self.slots)
+        vals, image = batched_oracle(self.program, mems.numpy())
         bad = compare_batch(dict(zip(self.nodes, sim_vals.numpy())),
                             sim_mem.numpy(), vals, image)
         per_slot = np.array([vals[n] for n in self.order], np.int64)
@@ -439,10 +438,11 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
     chunk, and compares under the ``verify`` contract.  Activity
     statistics are harvested from each chunk's trace on its device.
 
-    Each chunk is judged by the verdict step (``_VerdictStep``).  On the
+    Each chunk crosses to the device once (:func:`device_image`): the PE
+    array starts from that tensor and the verdict step (``_VerdictStep``)
+    reads the same one.  On the
     card the oracle is one launch of the oracle kernel over the
-    artifact's compiled table (``Artifact.oracle_table``), on its own
-    device copy of the chunk from the host array, with the verdict
+    artifact's compiled table (``Artifact.oracle_table``), with the verdict
     epilogue (:func:`~repro_torch.kernels.oracle.oracle_verdict`): the
     chunk's final images and last-iteration node values stay on the card,
     only the verdict mask comes back, and the four operands of a failing
@@ -452,12 +452,17 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
     mismatch lines.
 
     Every phase is a span (:mod:`repro_torch.obs.trace`) under
-    ``fuzz.program``, one ``fuzz.chunk`` a chunk: ``fuzz.execute``
-    (decode, preset and the launch's enqueue), ``fuzz.readback`` (the
+    ``fuzz.program``, one ``fuzz.chunk`` a chunk (attributes ``lo``,
+    ``rows`` and ``upload_bytes``, the bytes the chunk copied to the card,
+    0 on the CPU): ``fuzz.execute``
+    (the chunk's one upload, the presets broadcast on the device and the
+    launch's enqueue; the words, presets and neighbour table come from
+    :func:`~repro_torch.cgra.simulator.device_program`, built once a
+    bitstream), ``fuzz.readback`` (the
     gather of the node values into a (K, B) tensor on the trace's
     device), ``fuzz.oracle`` (attribute ``backend``, ``cuda`` or
-    ``numpy``; on the card the chunk's copy in, the launch, the verdict's
-    copy back and the wait), ``fuzz.compare`` (attributes ``backend`` and
+    ``numpy``; on the card the launch, the verdict's copy back and the
+    wait), ``fuzz.compare`` (attributes ``backend`` and
     ``rows_back``, the failing rows copied back) and ``fuzz.activity``
     (also the accumulator's set-up and its report).
     The report's times are their projections: ``exec_time_s`` is execute
@@ -492,11 +497,14 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
         for lo in range(0, n, batch):
             chunk = mems[lo:lo + batch]
             with obs_trace.timed_span("fuzz.chunk", lo=lo,
-                                      rows=chunk.shape[0]):
+                                      rows=chunk.shape[0]) as chunk_sp:
                 with _phase(times, "execute") as sp:
                     launches = run_cycles.launches
+                    image = device_image(chunk, chunk.shape[0], dev)
+                    chunk_sp.set(upload_bytes=image.nbytes
+                                 if dev.type == "cuda" else 0)
                     final, outs, _ = execute_asm(
-                        asm, artifact.grid, chunk, batch=chunk.shape[0],
+                        asm, artifact.grid, image, batch=chunk.shape[0],
                         device=dev)
                     if run_cycles.launches > launches:
                         geom = run_cycles.last_geometry
@@ -505,16 +513,16 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
                 with _phase(times, "readback"):
                     sim_vals = step.gather(outs)
                 with _phase(times, "oracle", backend=step.backend):
-                    verdict = step.judge(chunk, final.mem, sim_vals)
+                    verdict = step.judge(image, final.mem, sim_vals)
                 with _phase(times, "compare", backend=step.backend) as sp:
                     bad = np.nonzero(verdict.bad)[0]
                     rep.failing.extend((lo + bad).tolist())
                     sp.set(rows_back=step.mismatches(
                         sim_vals, final.mem, verdict, bad, lo,
                         rep.mismatches))
-                    # the oracle's device buffer goes before the next
-                    # chunk's trace is made
-                    verdict = None
+                    # the oracle's device buffer and the chunk's image go
+                    # before the next chunk's trace is made
+                    verdict = image = None
                 if acc is not None:
                     with _phase(times, "activity"):
                         acc.update(outs)
@@ -648,10 +656,11 @@ def _pad_fields(fields: InstrRow, total_rows: int) -> InstrRow:
     return InstrRow(*(torch.cat([f, n]) for f, n in zip(fields, nop)))
 
 
-def run_stacked(artifacts: Sequence[Artifact], mems: np.ndarray,
+def run_stacked(artifacts: Sequence[Artifact], mems,
                 device="cuda") -> Tuple[PEState, torch.Tensor]:
     """Execute K bitstreams of one grid over (K, B, M) memories, or one
-    shared (B, M) corpus, in one ``run_program``: on the card one kernel
+    shared (B, M) corpus, host arrays or tensors on ``device`` (used as
+    they are), in one ``run_program``: on the card one kernel
     launch.  Returns (final state with a leading K axis, outs (K, T_max, B,
     P)) on ``device``.  Shorter bitstreams are NOP-padded: rows past a
     kernel's real schedule execute nothing, so its ``node_of_cell`` indices
@@ -662,10 +671,8 @@ def run_stacked(artifacts: Sequence[Artifact], mems: np.ndarray,
         if art.grid != grid:
             raise ValueError(f"cannot stack {art.kernel}: grid {art.grid} "
                              f"!= {grid}")
-    mems = np.asarray(mems, np.int32)
-    if mems.ndim == 2:
-        mems = np.broadcast_to(mems[None], (len(artifacts),) + mems.shape)
-    K = mems.shape[0]
+    image = _stacked_image(mems, len(artifacts), dev)
+    K = image.shape[0]
     if K != len(artifacts):
         raise ValueError(f"{len(artifacts)} bitstreams but {K} memory "
                          f"groups")
@@ -673,9 +680,19 @@ def run_stacked(artifacts: Sequence[Artifact], mems: np.ndarray,
     words = np.stack([_pad_words(art.asm.words(), t_max)
                       for art in artifacts])
     state = stacked_preset_state([art.asm for art in artifacts],
-                                 grid.num_pes, mems, dev)
+                                 grid.num_pes, image, dev)
     return run_program(decode_fields(words, dev), state,
-                       neighbor_table(grid), dev)
+                       device_neighbors(grid, dev), dev)
+
+
+def _stacked_image(mems, K: int, dev: torch.device) -> torch.Tensor:
+    """(K, B, M) memories, or one (B, M) corpus shared by K kernels, as a
+    (K, B, M) tensor on ``dev``: one upload, the shared corpus expanded
+    there."""
+    if not isinstance(mems, torch.Tensor):
+        mems = np.asarray(mems, np.int32)
+    image = device_image(mems, mems.shape[-2], dev)
+    return image.expand(K, *image.shape) if image.dim() == 2 else image
 
 
 def fuzz_stacked(artifacts: Sequence[Artifact], mems: np.ndarray,
@@ -686,11 +703,9 @@ def fuzz_stacked(artifacts: Sequence[Artifact], mems: np.ndarray,
     oracle launch a kernel), with its verdicts; execution time, up to the
     launch's end, is split evenly over the K kernels."""
     dev = resolve_device(device)
-    mems = np.asarray(mems, np.int32)
-    if mems.ndim == 2:
-        mems = np.broadcast_to(mems[None], (len(artifacts),) + mems.shape)
     t0 = time.monotonic()
-    final, outs = run_stacked(artifacts, mems, device=dev)
+    image = _stacked_image(mems, len(artifacts), dev)
+    final, outs = run_stacked(artifacts, image, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     exec_time = time.monotonic() - t0
@@ -699,17 +714,17 @@ def fuzz_stacked(artifacts: Sequence[Artifact], mems: np.ndarray,
         step = _VerdictStep(art, dev)
         t1 = time.monotonic()
         sim_vals = step.gather(outs[k])
-        verdict = step.judge(mems[k], final.mem[k], sim_vals)
+        verdict = step.judge(image[k], final.mem[k], sim_vals)
         oracle_time = time.monotonic() - t1
         bad = np.nonzero(verdict.bad)[0]
         rep = FuzzReport(
             kernel=art.kernel, arch=art.arch, status="ok", ii=art.asm.ii,
-            memories=int(mems.shape[1]), batch=int(mems.shape[1]),
+            memories=int(image.shape[1]), batch=int(image.shape[1]),
             backend=_backend(dev), failing=bad.tolist(),
             exec_time_s=round(exec_time / len(artifacts), 4),
             oracle_time_s=round(oracle_time, 4))
         share = exec_time / len(artifacts) + oracle_time
-        rep.mem_rate = round(mems.shape[1] / share, 2) if share > 0 else 0.0
+        rep.mem_rate = round(image.shape[1] / share, 2) if share > 0 else 0.0
         step.mismatches(sim_vals, final.mem[k], verdict, bad, 0,
                         rep.mismatches)
         rep.mismatches = rep.mismatches[:_MISMATCH_SAMPLE_CAP]

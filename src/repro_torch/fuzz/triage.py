@@ -37,6 +37,7 @@ from ..cgra.isa import encode_program
 from ..cgra.simulator import execute_asm
 from ..device import resolve_device
 from ..kernels.oracle import OracleVerdict
+from ..kernels.ops import device_image
 from .engine import (
     M32,
     FuzzReport,
@@ -119,11 +120,13 @@ def shrink(
 def _probe(step: _VerdictStep, artifact: Artifact, mems: np.ndarray,
            device) -> Tuple[torch.Tensor, torch.Tensor, OracleVerdict]:
     """One batched run of ``mems`` judged by ``step``: the simulator's
-    final images, its compared node values and the verdict."""
-    final, outs, _ = execute_asm(artifact.asm, artifact.grid, mems,
+    final images, its compared node values and the verdict.  The memories
+    cross to the device once; the run and the oracle read that copy."""
+    image = device_image(mems, mems.shape[0], device)
+    final, outs, _ = execute_asm(artifact.asm, artifact.grid, image,
                                  batch=mems.shape[0], device=device)
     sim_vals = step.gather(outs)
-    return final.mem, sim_vals, step.judge(mems, final.mem, sim_vals)
+    return final.mem, sim_vals, step.judge(image, final.mem, sim_vals)
 
 
 def engine_check(artifact: Artifact, device="cuda"

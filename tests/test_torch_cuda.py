@@ -363,6 +363,70 @@ def test_fuzz_program_launches_run_cycles_once_per_chunk(cuda, arch, kernel):
     assert cycle_step.launches == steps
 
 
+def _adres_artifact(kernel):
+    """A frozen artifact of the benchmark's 8x8 mesh (P = 64)."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.cgra.artifact import Artifact
+
+    path = (Path(__file__).resolve().parents[1] / "portbench" / "data"
+            / "adres-8x8" / f"{kernel}.json")
+    return Artifact.from_dict(json.loads(path.read_text()))
+
+
+@pytest.mark.parametrize("fault", [False, True], ids=["clean", "fault"])
+@pytest.mark.parametrize("arch,kernel", [("4x4", "gsm"),
+                                         ("adres-8x8", "stencil3")])
+def test_fuzz_program_uploads_each_chunk_once(cuda, tmp_path, monkeypatch,
+                                              arch, kernel, fault):
+    """Three chunks: the device program is built on the first call (the
+    faulted artifact builds its own) and not on the second; each
+    ``fuzz.chunk`` copies rows x M x 4 bytes, the chunk's image, which
+    the oracle reads as it was sent after the launch; failing memories,
+    mismatch lines and activity equal the CPU path's."""
+    from repro_torch.cgra.simulator import device_program
+    from repro_torch.fuzz import engine
+    from repro_torch.obs import report
+    from repro_torch.obs import trace as obs_trace
+
+    art = (_adres_artifact(kernel) if arch == "adres-8x8"
+           else load_artifact(arch, kernel))
+    if fault:
+        art = _faulty(art)
+    mems = make_corpus(art, 600, seed=5)
+    cpu = fuzz_program(art, mems, batch=256, device="cpu")
+    real, judged = engine._VerdictStep.judge, []
+
+    def judge(step, image, sim_mem, sim_vals):
+        verdict = real(step, image, sim_mem, sim_vals)
+        judged.append((image.device, image.cpu().numpy()))
+        return verdict
+
+    monkeypatch.setattr(engine._VerdictStep, "judge", judge)
+    builds = device_program.builds
+    obs_trace.enable(str(tmp_path / "trace"))
+    try:
+        card = fuzz_program(art, mems, batch=256, device=cuda)
+    finally:
+        obs_trace.disable()
+    assert device_program.builds == builds + 1
+    again = fuzz_program(art, mems, batch=256, device=cuda)
+    assert device_program.builds == builds + 1
+    for rep in (card, again):
+        assert (rep.status, rep.failing, rep.mismatches, rep.activity) == (
+            cpu.status, cpu.failing, cpu.mismatches, cpu.activity)
+    assert (card.status == "mismatch") == fault
+    M = mems.shape[1]
+    chunks = [r["attrs"] for r in report.load(str(tmp_path / "trace"))
+              if r["k"] == "span" and r["name"] == "fuzz.chunk"]
+    assert [a["upload_bytes"] for a in chunks] == [
+        rows * M * 4 for rows in (256, 256, 88)]
+    for lo, (device, image) in zip((0, 256, 512), judged[:3]):
+        assert device.type == "cuda"
+        np.testing.assert_array_equal(image, mems[lo:lo + 256])
+
+
 @pytest.mark.parametrize("side,batch,lane", [(4, 1024, True),
                                              (4, 16384, False),
                                              (6, 1024, False)])

@@ -276,7 +276,7 @@ def test_failing_rows_give_the_full_batch_mismatch_lines(arch, kernel, fault,
     table = art.oracle_table
     assert step.slots == tuple(table.node_ids.index(n) for n in step.nodes)
     sim = step.gather(outs)
-    for verdict in (step.judge(mems, final.mem, sim),
+    for verdict in (step.judge(torch.as_tensor(mems), final.mem, sim),
                     oracle_verdict_ref(table, torch.as_tensor(mems),
                                        final.mem, sim, step.slots)):
         np.testing.assert_array_equal(verdict.bad, bad)
@@ -287,6 +287,52 @@ def test_failing_rows_give_the_full_batch_mismatch_lines(arch, kernel, fault,
         assert back <= engine._MISMATCH_SAMPLE_CAP - before
         assert (back > 0) == fault
     assert bad.any() == fault
+
+
+@pytest.mark.parametrize("fault", [False, True], ids=["clean", "fault"])
+def test_each_chunk_is_judged_on_the_image_its_run_started_from(
+        monkeypatch, tmp_path, fault):
+    """``fuzz_program`` makes one image tensor a chunk: the run starts from
+    it and ``judge`` takes that very tensor, which still holds the chunk
+    sent after the run; a chunk copies nothing to a card on the CPU
+    (``upload_bytes`` 0 on ``fuzz.chunk``).  The verdicts are the JAX
+    package's."""
+    from repro_torch.obs import report
+    from repro_torch.obs import trace as obs_trace
+
+    art = load_artifact("4x4", "gsm")
+    if fault:
+        art = dataclasses.replace(art, asm=port_inject(art.asm)[0])
+    mems = corpus.make_corpus(art, 50, seed=3)
+    started, judged = [], []
+    real_execute, real_judge = engine.execute_asm, engine._VerdictStep.judge
+
+    def execute(asm, grid, mem, batch=1, device="cuda"):
+        started.append(mem)
+        return real_execute(asm, grid, mem, batch=batch, device=device)
+
+    def judge(step, image, sim_mem, sim_vals):
+        assert isinstance(image, torch.Tensor)
+        judged.append((image, image.numpy().copy()))
+        return real_judge(step, image, sim_mem, sim_vals)
+
+    monkeypatch.setattr(engine, "execute_asm", execute)
+    monkeypatch.setattr(engine._VerdictStep, "judge", judge)
+    obs_trace.enable(str(tmp_path / "trace"))
+    try:
+        rep = engine.fuzz_program(art, mems, batch=20, device="cpu")
+    finally:
+        obs_trace.disable()
+    assert len(started) == len(judged) == 3
+    for lo, mem, (image, seen) in zip((0, 20, 40), started, judged):
+        assert mem is image
+        np.testing.assert_array_equal(seen, mems[lo:lo + 20])
+    chunks = [r["attrs"] for r in report.load(str(tmp_path / "trace"))
+              if r["k"] == "span" and r["name"] == "fuzz.chunk"]
+    assert chunks == [{"lo": lo, "rows": rows, "upload_bytes": 0}
+                      for lo, rows in ((0, 20), (20, 20), (40, 10))]
+    assert _verdict(rep)[:3] == _verdict(_jax_fuzz(art, mems))[:3]
+    assert (rep.status == "mismatch") == fault
 
 
 def test_last_cells_keep_the_dict_order_of_the_trace_gather():

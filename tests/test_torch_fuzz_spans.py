@@ -106,7 +106,8 @@ def test_shards_validate_and_the_chunks_cover_the_program(call, traced):
     assert (top[0]["attrs"], top[-1]["attrs"]) == ({"part": "setup"},
                                                    {"part": "report"})
     for i, chunk in enumerate(top[1:-1]):
-        assert chunk["attrs"] == {"lo": i * BATCH, "rows": BATCH}
+        assert chunk["attrs"] == {"lo": i * BATCH, "rows": BATCH,
+                                  "upload_bytes": 0}
         assert [r["name"] for r in kids[chunk["span"]]] == list(PHASES)
 
 
