@@ -22,8 +22,11 @@ import numpy as np
 from .arch import Grid, PEGrid
 from .bitstream import AssembledCIL, assemble
 from .programs import LoopBuilder
+from .registry import DEFAULT_SUITE
 
 ARTIFACT_ROOT = Path(__file__).resolve().parents[1] / "artifacts"
+#: words of a memory image where an artifact does not say
+MEM_WORDS = DEFAULT_SUITE.mem_words
 
 @dataclass
 class Artifact:
@@ -34,26 +37,30 @@ class Artifact:
     program: LoopBuilder
     regions: Tuple[Tuple[int, int, int, int], ...]  # (base, length, lo, hi)
     wide_product: bool               # the program contains FXPMUL
+    mem_words: int = MEM_WORDS       # words of the kernel's memory image
 
     @classmethod
     def from_mapping(cls, program: LoopBuilder, mapping,
                      arch: Optional[str] = None) -> "Artifact":
         """The artifact of a fresh mapping of ``program``: its assembled
-        words, the corpus regions of the registry kernel of that name
-        (none for a program the registry does not name) and ``arch``
-        (default ``RxC``)."""
+        words, the corpus regions and image size of the registry kernel of
+        that name (none and 128 words for a program the registry does not
+        name) and ``arch`` (default ``RxC``)."""
         from ..fuzz.corpus import kernel_regions
-        from .registry import kernel_names
+        from .registry import get_kernel, is_registered
 
         grid = mapping.grid
+        known = is_registered(program.name)
         regions = (tuple((r.base, r.length, r.lo, r.hi)
                          for r in kernel_regions(program.name))
-                   if program.name in kernel_names() else ())
+                   if known else ())
         return cls(kernel=program.name,
                    arch=arch or f"{grid.rows}x{grid.cols}",
                    grid=grid, asm=assemble(program, mapping),
                    program=program, regions=regions,
-                   wide_product=any(n.op == "FXPMUL" for n in program.nodes))
+                   wide_product=any(n.op == "FXPMUL" for n in program.nodes),
+                   mem_words=(get_kernel(program.name).mem_words if known
+                              else MEM_WORDS))
 
     @classmethod
     def from_dict(cls, doc: Dict) -> "Artifact":
@@ -71,7 +78,8 @@ class Artifact:
                    grid=Grid(doc["rows"], doc["cols"], doc["topology"]),
                    asm=asm, program=LoopBuilder.from_dict(doc["program"]),
                    regions=tuple(tuple(r) for r in doc["regions"]),
-                   wide_product=bool(doc["wide_product"]))
+                   wide_product=bool(doc["wide_product"]),
+                   mem_words=int(doc.get("mem_words", MEM_WORDS)))
 
     @functools.cached_property
     def oracle_table(self):
@@ -83,9 +91,10 @@ class Artifact:
         return compile_oracle(self.program)
 
     def to_dict(self) -> Dict:
-        """Inverse of :meth:`from_dict`, keys in the shipped files' order."""
+        """Inverse of :meth:`from_dict`, keys in the shipped files' order;
+        ``mem_words`` last, and only where the image is not 128 words."""
         asm = self.asm
-        return {
+        doc = {
             "format": 1,
             "kernel": self.kernel,
             "arch": self.arch,
@@ -105,6 +114,9 @@ class Artifact:
             "regions": [list(r) for r in self.regions],
             "wide_product": self.wide_product,
         }
+        if self.mem_words != MEM_WORDS:
+            doc["mem_words"] = self.mem_words
+        return doc
 
 
 def artifact_names(arch: str) -> List[str]:

@@ -21,6 +21,7 @@ from typing import Dict, List, Optional, Tuple, Union
 
 from ..core.dfg import DFG, Edge, Node
 from .isa import alu_semantics
+from .registry import DEFAULT_SUITE, FRAME160, Suite
 
 FLAG = "flag"
 
@@ -329,14 +330,16 @@ def stringsearch(trip: int = 16) -> LoopBuilder:
     return p
 
 
-def gsm(trip: int = 16) -> LoopBuilder:
-    """Saturating fixed-point multiply-accumulate (paper: 14 nodes / 20 edges)."""
+def gsm(trip: int = 16, second: int = 32, out: int = 64,
+        name: str = "gsm") -> LoopBuilder:
+    """Saturating fixed-point multiply-accumulate (paper: 14 nodes / 20 edges):
+    x at word 0, y at ``second``, the running sums stored at ``out``."""
     MAX, MIN = 32767, -32768
-    p = LoopBuilder("gsm", trip)
+    p = LoopBuilder(name, trip)
     i = p.carry("i", 0)
     acc = p.carry("acc", 0)
     x = p.op("LWI", i, None, imm=0)
-    y = p.op("LWI", i, None, imm=32)
+    y = p.op("LWI", i, None, imm=second)
     prod = p.op("SMUL", x, y)
     sh = p.op("SRA", prod, None, imm=15)
     s = p.op("SADD", acc, sh)
@@ -345,7 +348,7 @@ def gsm(trip: int = 16) -> LoopBuilder:
     cmin = p.op("SSUB", Val(s1.node), None, imm=MIN)  # sign => s1 < MIN
     s2 = p.op("BSFA", None, s1, imm=MIN, flag=cmin)
     i2 = p.op("SADD", i, None, imm=1)
-    p.op("SWI", i2, s2, imm=64)
+    p.op("SWI", i2, s2, imm=out)
     t = p.op("BNE", i2, None, imm=trip)
     p.op("JUMP", t)
     p.set_carry(i, i2)
@@ -445,24 +448,27 @@ BENCHMARKS = {
 }
 
 
-def benchmark_mem(name: str, seed: int = 0):
-    """Randomized 128-word input image for a Table-6 benchmark.
+def benchmark_mem(name: str, seed: int = 0, suite: Suite = DEFAULT_SUITE):
+    """Randomized input image for a Table-6 benchmark, of ``suite``'s size
+    (128 words by default).
 
     stringsearch draws from a small alphabet so pattern matches actually
     occur; gsm keeps operands within Q15 so saturation paths are exercised
-    without constant overflow.
+    without constant overflow, ``suite.trip`` of each at 0 and
+    ``suite.second``.
     """
     import numpy as np
 
     rng = np.random.RandomState(seed)
-    mem = np.zeros(128, np.int32)
+    mem = np.zeros(suite.mem_words, np.int32)
     if name == "stringsearch":
         mem[0:16] = rng.randint(0, 8, 16)
         mem[32:48] = rng.randint(0, 8, 16)
         mem[48:64] = rng.randint(0, 8, 16)
     elif name == "gsm":
-        mem[0:16] = rng.randint(-(2**14), 2**14, 16)
-        mem[32:48] = rng.randint(-(2**14), 2**14, 16)
+        n, y = suite.trip, suite.second
+        mem[0:n] = rng.randint(-(2**14), 2**14, n)
+        mem[y:y + n] = rng.randint(-(2**14), 2**14, n)
     else:
         mem[0:32] = rng.randint(0, 2**30, 32)
     return mem
@@ -478,6 +484,16 @@ def _register_benchmarks() -> None:
             name, factory, origin="handwritten",
             make_mem=functools.partial(benchmark_mem, name),
             tags=("table6",))
+    # the frame suite's one hand-written loop (its traced ones are in
+    # repro_torch.frontend.kernels)
+    f = FRAME160
+    register_kernel(
+        f.kernel("gsm"),
+        functools.partial(gsm, f.trip, second=f.second, out=f.out,
+                          name=f.kernel("gsm")),
+        origin="handwritten",
+        make_mem=functools.partial(benchmark_mem, "gsm", suite=f),
+        tags=("table6",), suite=f.name)
 
 
 _register_benchmarks()

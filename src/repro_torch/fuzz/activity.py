@@ -163,6 +163,7 @@ class ActivityAccumulator:
         self.T, self.P = asm.total_rows, asm.num_pes
         lhs, rhs, bins = _replay_pairs(asm, grid)
         self._sources, self._bins = lhs + rhs, bins
+        self.cells = len(bins) // 3      # executed cells of the schedule
         ops = (asm.bitstream.astype(np.int64) >> 27) & 0x1F
         self._cells_per_op = np.bincount(ops.ravel(), minlength=len(OPS))
         self._tables: Optional[_Tables] = None

@@ -6,13 +6,17 @@ Examples::
     python -m repro_torch fuzz --kernels all --memories 2048
     python -m repro_torch fuzz --kernels gsm,fir4 --device cpu --json
     python -m repro_torch fuzz --kernels gsm --memories 4096 --shrink
+    python -m repro_torch fuzz --kernels gsm_f160,stencil3_f160 \
+        --memories 16384 --batch 16384
 
 A copy of ``src/repro/fuzz/cli.py``.  Each (kernel, arch) pair is mapped
 through the port's :class:`~repro_torch.toolchain.session.Toolchain`,
 fuzzed over a deterministic seeded corpus in batched PE-array runs,
 checked against the vectorized oracle, with its switching activity and
-energy delta.  ``--shrink`` turns mismatches into single-memory
-reproducer JSONs under ``--failures-dir``.  The JSON digest has the fields
+energy delta.  A kernel of a port-only suite (``gsm_f160``: one GSM 06.10
+frame, 160 iterations) is fuzzed on images of its own size (512 words).
+``--shrink`` turns mismatches into single-memory reproducer JSONs under
+``--failures-dir``.  The JSON digest has the fields
 of ``python -m repro fuzz --json``; ``backend`` is ``cuda`` on the card
 and ``ref`` on the CPU.  ``--cache-dir`` reads and writes the
 content-addressed mapping cache, which both packages share.
@@ -30,13 +34,13 @@ from .engine import FuzzReport, fuzz_kernel
 
 
 def _resolve_kernels(spec: str) -> List[str]:
-    from ..cgra.registry import kernel_names
+    """``all`` (the default suite) or registry names of any suite."""
+    from ..cgra.registry import is_registered, kernel_names
 
     if spec == "all":
         return kernel_names()
     names = [k.strip() for k in spec.split(",") if k.strip()]
-    known = set(kernel_names())
-    unknown = [k for k in names if k not in known]
+    unknown = [k for k in names if not is_registered(k)]
     if unknown:
         raise SystemExit(f"unknown kernel(s): {', '.join(unknown)} "
                          f"(registered: {', '.join(kernel_names())})")
@@ -72,7 +76,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         prog="python -m repro_torch fuzz",
         description="batched differential fuzzing of mapped kernels")
     ap.add_argument("--kernels", default="all",
-                    help="comma-separated registry kernels, or 'all' "
+                    help="comma-separated registry kernels of any suite "
+                         "(gsm_f160), or 'all' of the default suite "
                          "(default)")
     ap.add_argument("--arch", default="4x4",
                     help="comma-separated architecture specs/presets "

@@ -1,10 +1,10 @@
 """Deterministic seeded memory corpora, one generator family per kernel.
 
 A copy of ``src/repro/fuzz/corpus.py``.  A kernel is named either by
-its registry name, whose input regions and FXPMUL clip flag come from the
-registry as in the JAX package, or by an artifact, which stores both; the
-two give byte-identical images.  Memory ``i`` of a corpus uses
-``STRATEGIES[i % 5]`` with an RNG derived only from
+its registry name, whose input regions, FXPMUL clip flag and image size
+come from the registry as in the JAX package, or by an artifact, which
+stores all three; the two give byte-identical images.  Memory ``i`` of a
+corpus uses ``STRATEGIES[i % 5]`` with an RNG derived only from
 ``(kernel, base_seed, i)`` via crc32:
 
 * ``uniform``  every region cell uniform in its declared ``[lo, hi)``
@@ -27,6 +27,7 @@ import numpy as np
 
 from ..cgra.artifact import Artifact
 from ..cgra.isa import IMM_MAX, IMM_MIN
+from ..cgra.registry import DEFAULT_SUITE, FRAME160, Suite, get_kernel
 
 INT32_MIN = -(1 << 31)
 INT32_MAX = (1 << 31) - 1
@@ -34,7 +35,7 @@ INT32_MAX = (1 << 31) - 1
 STRATEGIES: Tuple[str, ...] = (
     "uniform", "boundary", "sparse", "fill", "overflow")
 
-MEM_SIZE = 128
+MEM_SIZE = DEFAULT_SUITE.mem_words
 
 
 @dataclass(frozen=True)
@@ -47,13 +48,18 @@ class Region:
     hi: int = 1 << 30
 
 
+def _gsm_regions(suite: Suite) -> Tuple[Region, ...]:
+    return (Region(0, suite.trip, -(2 ** 14), 2 ** 14),
+            Region(suite.second, suite.trip, -(2 ** 14), 2 ** 14))
+
+
 #: input layouts of the hand-written Table-6 benchmarks, mirroring
 #: ``repro_torch.cgra.programs.benchmark_mem`` (which only exposes a callable)
 _HANDWRITTEN_REGIONS: Dict[str, Tuple[Region, ...]] = {
     "stringsearch": (Region(0, 16, 0, 8), Region(32, 16, 0, 8),
                      Region(48, 16, 0, 8)),
-    "gsm": (Region(0, 16, -(2 ** 14), 2 ** 14),
-            Region(32, 16, -(2 ** 14), 2 ** 14)),
+    "gsm": _gsm_regions(DEFAULT_SUITE),
+    FRAME160.kernel("gsm"): _gsm_regions(FRAME160),
 }
 _DEFAULT_REGIONS: Tuple[Region, ...] = (Region(0, 32, 0, 2 ** 30),)
 
@@ -61,13 +67,11 @@ _DEFAULT_REGIONS: Tuple[Region, ...] = (Region(0, 32, 0, 2 ** 30),)
 @functools.lru_cache(maxsize=None)
 def kernel_regions(name: str) -> Tuple[Region, ...]:
     """The randomized input regions of one registry kernel."""
-    from ..cgra.registry import get_kernel
-
     spec = get_kernel(name)
     if spec.origin == "traced":
-        from ..frontend.kernels import TRACED_KERNELS
+        from ..frontend.kernels import TRACED_SUITES
 
-        mem_regions = TRACED_KERNELS[name].spec.mem_regions
+        mem_regions = TRACED_SUITES[spec.suite][name].spec.mem_regions
         return tuple(Region(r.base, r.length, r.lo, r.hi)
                      for r in mem_regions)
     return _HANDWRITTEN_REGIONS.get(name, _DEFAULT_REGIONS)
@@ -95,6 +99,13 @@ def _layout(kernel: Kernel) -> Tuple[str, Tuple[Region, ...], bool]:
     return kernel, kernel_regions(kernel), uses_wide_product(kernel)
 
 
+def kernel_mem_words(kernel: Kernel) -> int:
+    """Words of the memory image of a registry name or an artifact."""
+    if isinstance(kernel, Artifact):
+        return kernel.mem_words
+    return get_kernel(kernel).mem_words
+
+
 def _rng(kernel: str, seed: int, index: int) -> np.random.RandomState:
     """Process-stable per-memory RNG (crc32 mix, never ``hash``)."""
     tag = zlib.crc32(f"{kernel}/{seed}/{index}".encode())
@@ -115,8 +126,11 @@ def _fill_regions(mem: np.ndarray, regions: Sequence[Region], draw) -> None:
 
 def generate_memory(kernel: Kernel, index: int, seed: int = 0,
                     strategy: Optional[str] = None,
-                    mem_size: int = MEM_SIZE) -> np.ndarray:
-    """One deterministic (mem_size,) int32 image for corpus slot ``index``."""
+                    mem_size: Optional[int] = None) -> np.ndarray:
+    """One deterministic (mem_size,) int32 image for corpus slot ``index``
+    (``mem_size``: the kernel's own image by default)."""
+    if mem_size is None:
+        mem_size = kernel_mem_words(kernel)
     strategy = strategy or STRATEGIES[index % len(STRATEGIES)]
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown corpus strategy {strategy!r}; "
@@ -163,8 +177,12 @@ def generate_memory(kernel: Kernel, index: int, seed: int = 0,
 
 def make_corpus(kernel: Kernel, n: int, seed: int = 0,
                 strategies: Optional[Sequence[str]] = None,
-                mem_size: int = MEM_SIZE) -> np.ndarray:
-    """(n, mem_size) int32 corpus; row ``i`` uses strategy ``i % len``."""
+                mem_size: Optional[int] = None) -> np.ndarray:
+    """(n, mem_size) int32 corpus; row ``i`` uses strategy ``i % len``.
+    ``mem_size`` defaults to the kernel's own image (``kernel_mem_words``:
+    128 words but in a port-only suite)."""
+    if mem_size is None:
+        mem_size = kernel_mem_words(kernel)
     chosen = tuple(strategies) if strategies else STRATEGIES
     for s in chosen:
         if s not in STRATEGIES:

@@ -400,6 +400,8 @@ class FuzzReport:
     readback_time_s: float = 0.0     # the part of exec_time_s after launch
     compare_time_s: float = 0.0
     activity_time_s: float = 0.0
+    activity_setup_s: float = 0.0    # the part of activity_time_s before
+                                     # the first chunk (the replay)
     ring_launches: int = 0           # run_cycles launches from a ring
     mem_rate: float = 0.0            # memories verified per second
     activity: Optional[Dict] = None
@@ -464,13 +466,17 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
     ``numpy``; on the card the launch, the verdict's copy back and the
     wait), ``fuzz.compare`` (attributes ``backend`` and
     ``rows_back``, the failing rows copied back) and ``fuzz.activity``
-    (also the accumulator's set-up and its report).
+    (also the accumulator's set-up, attribute ``cells``, the executed
+    cells its replay resolves, and its report).  ``fuzz.program`` also
+    carries the program's ``rows`` and the image's ``mem_words``.
     The report's times are their projections: ``exec_time_s`` is execute
-    + readback.  Where ``fuzz.execute`` makes a launch it carries, from
-    ``run_cycles.last_geometry``, the launch's ``pes_per_warp`` (in the
-    lane layout a warp holds every PE of its batch rows) and
-    ``chunk_rows`` (below the program's rows, the program runs from a
-    ring); ``ring_launches`` counts the launches that did
+    + readback, ``activity_setup_s`` the set-up's part of
+    ``activity_time_s``.  Where ``fuzz.execute`` makes a launch it
+    carries, from ``run_cycles.last_geometry``, the launch's
+    ``pes_per_warp`` (in the lane layout a warp holds every PE of its
+    batch rows) and ``chunk_rows`` (below the program's rows, the
+    program runs from a ring); ``ring_launches`` counts the launches
+    that did
     (``run_cycles.ring_launches``).
     """
     dev = resolve_device(device)
@@ -488,12 +494,15 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
     rings = run_cycles.ring_launches
     root = obs_trace.timed_span("fuzz.program", kernel=artifact.kernel,
                                 memories=n, batch=rep.batch,
-                                chunks=-(-n // batch))
+                                chunks=-(-n // batch), rows=asm.total_rows,
+                                mem_words=mems.shape[1])
     with root:
         acc = None
         if collect_activity:
-            with _phase(times, "activity", part="setup"):
+            with _phase(times, "activity", part="setup") as sp:
                 acc = ActivityAccumulator(asm, artifact.grid)
+                sp.set(cells=acc.cells)
+            rep.activity_setup_s = round(sp.dur, 4)
         for lo in range(0, n, batch):
             chunk = mems[lo:lo + batch]
             with obs_trace.timed_span("fuzz.chunk", lo=lo,

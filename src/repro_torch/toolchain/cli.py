@@ -13,6 +13,7 @@ verbs of ``src/repro/toolchain/cli.py``, with their flags and defaults::
         --jobs 4 --cache-dir build/mapping_cache
     python -m repro_torch serve --port 0 --inline --cache-dir build/serve
     python -m repro_torch submit gsm --grid 2x2 --backend cdcl --json
+    python -m repro_torch map gsm_f160 --grid 4x4 --backend cdcl
     python -m repro_torch list --origin traced
     python -m repro_torch arch list
     python -m repro_torch arch show mesh-4x4:mem=col0,regs=8,ports=1/row
@@ -64,7 +65,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch map",
         description="compile one kernel to metrics")
-    ap.add_argument("kernel", help="registered kernel name")
+    ap.add_argument("kernel", help="registered kernel name, of any suite "
+                                   "(gsm, gsm_f160)")
     ap.add_argument("--grid", default="4x4", help="CGRA size (default 4x4)")
     ap.add_argument("--arch", default=None,
                     help="architecture spec or preset (overrides --grid)")

@@ -736,7 +736,7 @@ def test_fuzz_kernel_cache_cold_then_warm_on_the_card(cuda, tmp_path):
     for doc in docs:
         for key in ("map_time_s", "exec_time_s", "oracle_time_s",
                     "mem_rate", "readback_time_s", "compare_time_s",
-                    "activity_time_s"):
+                    "activity_time_s", "activity_setup_s"):
             doc.pop(key)
     assert docs[0] == docs[1]
     assert reps[0].status == "ok" and reps[0].backend == "cuda"

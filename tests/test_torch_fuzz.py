@@ -145,7 +145,7 @@ def test_injected_fault_reports_match_jax():
 #: timings (the port's phase timings have no JAX counterpart)
 _VARIES = ("backend", "map_time_s", "exec_time_s", "oracle_time_s",
            "mem_rate", "readback_time_s", "compare_time_s",
-           "activity_time_s")
+           "activity_time_s", "activity_setup_s")
 
 
 def _without_ring_launches(doc):
@@ -236,7 +236,8 @@ def test_fuzz_kernel_reports_an_unmapped_kernel_as_jax_does():
     want = jax_engine.fuzz_kernel("sha", "2x2", config=JaxConfig(ii_max=4))
     got, want = _without_ring_launches(rep.to_dict()), want.to_dict()
     assert got.pop("map_time_s") < 1.0 and want.pop("map_time_s") < 1.0
-    for key in ("readback_time_s", "compare_time_s", "activity_time_s"):
+    for key in ("readback_time_s", "compare_time_s", "activity_time_s",
+                "activity_setup_s"):
         assert got.pop(key) == 0.0 and key not in want
     assert got == want
     assert rep.status == "unmapped"

@@ -30,7 +30,8 @@ CASES = [("mesh-4x4", ("gsm", "saxpy", "relu_clamp", "xorshift32")),
          ("mesh-8x8:mem=row0,ports=1/row",
           ("bitcount", "saxpy", "xorshift32", "dotprod"))]
 _TIMES = ("map_time_s", "exec_time_s", "oracle_time_s", "mem_rate",
-          "backend", "readback_time_s", "compare_time_s", "activity_time_s")
+          "backend", "readback_time_s", "compare_time_s", "activity_time_s",
+          "activity_setup_s")
 
 
 @pytest.mark.parametrize("arch,kernels", CASES, ids=[a for a, _ in CASES])

@@ -95,16 +95,19 @@ def test_shards_validate_and_the_chunks_cover_the_program(call, traced):
     assert report.attribution(records, "fuzz.program")["attributed"] >= 0.95
     spans = {r["span"]: r for r in records if r["k"] == "span"}
     (root,) = [r for r in spans.values() if r["name"] == "fuzz.program"]
+    art, _ = call
     assert root["attrs"] == {"kernel": "gsm", "memories": MEMORIES,
-                             "batch": BATCH, "chunks": MEMORIES // BATCH}
+                             "batch": BATCH, "chunks": MEMORIES // BATCH,
+                             "rows": 84, "mem_words": 128}
     kids = defaultdict(list)
     for r in sorted(spans.values(), key=lambda r: r["ts"]):
         kids[r["parent"]].append(r)
     top = kids[root["span"]]
     assert [r["name"] for r in top] == (
         ["fuzz.activity"] + ["fuzz.chunk"] * 4 + ["fuzz.activity"])
-    assert (top[0]["attrs"], top[-1]["attrs"]) == ({"part": "setup"},
-                                                   {"part": "report"})
+    cells = int((art.asm.words() >> 27 != 0).sum())   # executed cells
+    assert (top[0]["attrs"], top[-1]["attrs"]) == (
+        {"part": "setup", "cells": cells}, {"part": "report"})
     for i, chunk in enumerate(top[1:-1]):
         assert chunk["attrs"] == {"lo": i * BATCH, "rows": BATCH,
                                   "upload_bytes": 0}
