@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the PE-array kernels (the whole-program run in two layouts, whose
-one-row launch is the cycle step) and the fuzz oracle's kernel from
-``src/repro_torch/kernels/csrc`` with nvcc, then, printing one JSON object
-per line:
+one-row launch is the cycle step), the fuzz oracle's kernel and the
+activity harvest's kernel from ``src/repro_torch/kernels/csrc`` with nvcc,
+then, printing one JSON object per line:
 
 1. the card (nvidia-smi name and power limit, torch and CUDA versions);
 2. the build and its time;
@@ -69,6 +69,14 @@ per line:
    c. activity and energy: every phase 4 report carries both; for gsm,
       fir4 and sqrt they equal the CPU plain path's on the same corpus;
       and ``mem_rate`` with activity on and off, in turns, per kernel;
+      then the harvest kernel (``kernels.activity.harvest_update``) on
+      the program with the most pairs of each benchmark configuration
+      (``HARVEST_DATA``) at B = 16,384: its bins bit-equal to the plain
+      version's (``ActivityAccumulator.update_ref``) on the same trace,
+      both timed by CUDA events, beside its bound (the trace read once
+      and the table), and the host's packing and enqueue; the main path
+      (cold and warm), the 8x8 path and the stream each launch it once a
+      chunk;
    d. triage on the card: gsm with an injected fault over 2048 memories
       gives the CPU run's verdicts, shrinks to the same memory and
       divergence, and writes the CPU run's reproducer apart from
@@ -163,12 +171,21 @@ per line:
    paths that run it, and given per path and, where counted, per layout;
    each layout must have run on the main path; the oracle's launches per
    path, one for each fuzz chunk on the card, and its largest difference
-   from its plain version and the numpy oracle), then the device line
-   last.
+   from its plain version and the numpy oracle; the harvest kernel's
+   launches on the main path and per path, its largest difference from
+   its plain version and its times from 4c), then the device line last.
 
 Any failure raises and exits non-zero.  Without CUDA it exits 1 and
 prints no result.  Run with no arguments it needs one card and nothing but
 the checkout.
+
+``python3 chip_smoke.py --harvest`` runs only the harvest kernel: 4c's
+part three, then every program of the benchmark's configurations at each
+count of warps an SM in ``HARVEST_SM_WARPS`` (timed, bins checked), then a
+traced window of each benchmark cell through the benchmark's own harness,
+in which every chunk sent takes one harvest, one run_cycles and one oracle
+launch and no device program is built, with ``fuzz.activity`` split by
+part.  It takes a few minutes.
 """
 from __future__ import annotations
 
@@ -209,6 +226,12 @@ RING_CASES = ((16, 128, 1000, 300), (36, 128, 37, 400), (4, 58_000, 3, 16),
 MESH_RING_CASES = ((64, 128, 16384, 112),)
 #: phase 4f: the frozen adres-8x8 artifact fuzzed, its memories and batch
 ADRES_DATA = Path("portbench") / "data" / "adres-8x8"
+#: the frozen artifacts of the benchmark's configurations, and its batch
+HARVEST_DATA = {"cgra-4x4": Path("portbench") / "data" / "cgra-4x4",
+                "adres-8x8": ADRES_DATA,
+                "cgra-4x4-frame160": Path("portbench") / "data"
+                / "cgra-4x4-frame160" / "artifacts"}
+HARVEST_BATCH = 16_384
 ADRES_KERNEL, ADRES_MEMORIES, ADRES_BATCH = "xorshift32", 32_768, 16_384
 MAIN_MEMORIES, MAIN_BATCH = 2048, 1024
 #: run_cycles launches by layout in the phases that count them (the fuzz
@@ -217,6 +240,13 @@ LAYOUT_LAUNCHES = {}
 #: oracle kernel launches by path: the fuzz main path, cold and warm, the
 #: stream and the oracle phase count their own, main() the others
 ORACLE_LAUNCHES = {}
+#: harvest kernel launches by path: the fuzz main path, cold and warm, the
+#: 8x8 path, the stream and the harvest phase's own check and timing
+HARVEST_LAUNCHES = {}
+#: phase 4c: the warps an SM that ``chip_smoke.py --harvest`` sweeps
+HARVEST_SM_WARPS = (4, 6, 8, 12, 16)
+#: ``--harvest``: the seconds of each cell's traced window, and its seed
+HARVEST_WINDOW_S, HARVEST_WINDOW_SEED = 12.0, 2_147_483_000
 #: ``Geometry.layout`` by name: run_cycles_kernel, run_lanes_kernel
 LAYOUT_NAMES = ("uniform", "lane")
 STACK_ARCH = "4x4"                 # the stacked rung of BENCH_fuzz.json
@@ -931,6 +961,7 @@ def main_path(artifacts, device, cache, warm=False):
     the reports and the artifacts ``fuzz_kernel`` built; the oracle
     kernel's launches go to ``ORACLE_LAUNCHES``, one a chunk."""
     from repro_torch.fuzz.engine import fuzz_kernel
+    from repro_torch.kernels.activity import harvest_update
     from repro_torch.kernels.oracle import oracle_verdict
     from repro_torch.kernels.pe_array import cycle_step, run_cycles
 
@@ -943,15 +974,18 @@ def main_path(artifacts, device, cache, warm=False):
     with recorded_artifacts() as made:
         cycle_step.launches = run_cycles.launches = 0
         oracle_verdict.launches = run_cycles.lane_launches = 0
+        harvest_update.launches = 0
         reports = [fuzz_kernel(a.kernel, a.arch, memories=MAIN_MEMORIES,
                                batch=MAIN_BATCH, seed=0, config=map_config(),
                                cache=cache, device=device)
                    for a in artifacts]
         steps, runs = cycle_step.launches, run_cycles.launches
         lanes, oracles = run_cycles.lane_launches, oracle_verdict.launches
+        harvests = harvest_update.launches
     wall = time.monotonic() - t0
     LAYOUT_LAUNCHES[phase] = {"lane": lanes, "uniform": runs - lanes}
     ORACLE_LAUNCHES[phase] = oracles
+    HARVEST_LAUNCHES[phase] = harvests
     for rep in reports:
         emit({"phase": "fuzz_warm" if warm else "fuzz", "kernel": rep.kernel,
               "arch": rep.arch,
@@ -971,6 +1005,9 @@ def main_path(artifacts, device, cache, warm=False):
     check(oracles == len(artifacts) * chunks,
           f"{phase}: the oracle launched {oracles} times, not once for "
           f"each of {len(artifacts) * chunks} batch chunks")
+    check(harvests == len(artifacts) * chunks,
+          f"{phase}: the harvest kernel launched {harvests} times, not once "
+          f"for each of {len(artifacts) * chunks} batch chunks")
     check(steps == 0, f"cycle_step launched {steps} times on the main path")
     check(lanes == runs, f"{phase}: {runs - lanes} of {runs} launches at "
                          f"B={MAIN_BATCH} left the lane layout")
@@ -979,7 +1016,7 @@ def main_path(artifacts, device, cache, warm=False):
     emit({"phase": phase, "kernels": len(reports),
           "memories_each": MAIN_MEMORIES, "batch": MAIN_BATCH,
           "run_cycles_launches": runs, "cycle_step_launches": steps,
-          "oracle_launches": oracles,
+          "oracle_launches": oracles, "harvest_launches": harvests,
           "layout_launches": LAYOUT_LAUNCHES[phase],
           "rows_run": rows_run, "cache": cache.stats(),
           "cache_entries": len(cache),
@@ -1033,6 +1070,7 @@ def adres_path(device) -> int:
     from repro_torch.cgra.artifact import Artifact
     from repro_torch.fuzz.corpus import make_corpus
     from repro_torch.fuzz.engine import fuzz_program
+    from repro_torch.kernels.activity import harvest_update
     from repro_torch.kernels.oracle import oracle_verdict
     from repro_torch.kernels.pe_array import cycle_step, run_cycles
 
@@ -1045,25 +1083,30 @@ def adres_path(device) -> int:
     t0 = time.monotonic()
     cycle_step.launches = run_cycles.launches = oracle_verdict.launches = 0
     run_cycles.lane_launches = run_cycles.ring_launches = 0
+    harvest_update.launches = 0
     rep = fuzz_program(art, mems, batch=ADRES_BATCH, device=device)
     steps, runs = cycle_step.launches, run_cycles.launches
     lanes, rings = run_cycles.lane_launches, run_cycles.ring_launches
-    oracles = oracle_verdict.launches
+    oracles, harvests = oracle_verdict.launches, harvest_update.launches
     wall = time.monotonic() - t0
     LAYOUT_LAUNCHES["adres_path"] = {"lane": lanes, "uniform": runs - lanes}
     ORACLE_LAUNCHES["adres_path"] = oracles
+    HARVEST_LAUNCHES["adres_path"] = harvests
     check(rep.status == "ok" and rep.failing == [],
           f"{ADRES_KERNEL}@adres-8x8: {rep.status} {rep.mismatches[:2]}")
-    check(runs == rings == rep.ring_launches == oracles == chunks,
+    check(runs == rings == rep.ring_launches == oracles == harvests
+          == chunks,
           f"adres_path: {runs} run_cycles launches, {rings} from the ring "
-          f"({rep.ring_launches} reported), {oracles} oracle launches, "
-          f"not one of each for {chunks} chunks")
+          f"({rep.ring_launches} reported), {oracles} oracle and "
+          f"{harvests} harvest launches, not one of each for {chunks} "
+          f"chunks")
     check(steps == lanes == 0, f"adres_path: {steps} cycle-step and "
                                f"{lanes} lane launches")
     emit({"phase": "adres_path", "kernel": ADRES_KERNEL, "arch": rep.arch,
           "status": rep.status, "ii": rep.ii, "memories": rep.memories,
           "batch": rep.batch, "run_cycles_launches": runs,
           "ring_launches": rings, "oracle_launches": oracles,
+          "harvest_launches": harvests,
           "mem_rate": rep.mem_rate, "exec_time_s": rep.exec_time_s,
           "seconds": round(wall, 3)})
     return runs
@@ -1999,6 +2042,252 @@ def activity_cost(artifacts, device) -> None:
           "seconds": round(time.monotonic() - t0, 3)})
 
 
+def _harvest_programs(config: str):
+    """The frozen artifacts of one benchmark configuration, by name."""
+    from repro_torch.cgra.artifact import Artifact
+
+    return [Artifact.from_dict(json.loads(p.read_text()))
+            for p in sorted((ROOT / HARVEST_DATA[config]).glob("*.json"))]
+
+
+def harvest_phase(device):
+    """Phase 4c, part three: the harvest kernel against its plain version
+    on the program with the most pairs of each benchmark configuration,
+    at the cells' batch.  The kernel's bins must equal the plain
+    version's on the same trace (the largest difference is returned); each
+    is timed by CUDA events (the kernel over 20 launches, the plain version
+    over 2), beside the bound: every trace cell a pair reads, once a
+    memory, and 12 bytes a pair, over the HBM rate (the whole trace read
+    once, ``trace_bytes``, is the most a launch needs).  On the host, the
+    median milliseconds of the set-up's packing (``pack_ms``) and of one
+    ``update``'s enqueue (``enqueue_us``).  Returns the frame
+    configuration's record and the largest difference."""
+    import numpy as np
+    import torch
+
+    from repro_torch.cgra.simulator import execute_asm
+    from repro_torch.fuzz.activity import ActivityAccumulator
+    from repro_torch.fuzz.corpus import make_corpus
+    from repro_torch.kernels.activity import (
+        LHS_CONST, RHS_CONST, harvest_geometry, harvest_update)
+
+    t0 = time.monotonic()
+    harvest_update.launches = 0
+    records, err = {}, 0
+    for config in HARVEST_DATA:
+        arts = _harvest_programs(config)
+        accs = [ActivityAccumulator(a.asm, a.grid) for a in arts]
+        art, plain = max(zip(arts, accs), key=lambda ac: (
+            ac[1].cells, ac[0].asm.total_rows))
+        B = HARVEST_BATCH
+        outs = execute_asm(art.asm, art.grid, make_corpus(art, B, seed=0),
+                           batch=B, device=device)[1]
+        kern = ActivityAccumulator(art.asm, art.grid, device)
+        kern.update(outs)
+        plain.update_ref(outs)
+        diff = int((kern._bits - plain._bits).abs().max())
+        err = max(err, diff)
+        check(diff == 0, f"{config}/{art.kernel}: the harvest kernel's bins "
+                         f"differ from the plain version's by up to {diff}")
+        T, P = art.asm.total_rows, art.asm.num_pes
+        table, bins = kern._harvest, kern._bits
+        kernel_ms = host_paced_ms(lambda: harvest_update(table, outs, bins),
+                                  20, 5)
+        plain_ms = host_paced_ms(lambda: plain.update_ref(outs), 2, 3)
+        pack_s, enqueue_s = [], []
+        for _ in range(5):
+            p0 = time.perf_counter()
+            kern._pack()
+            pack_s.append(time.perf_counter() - p0)
+            torch.cuda.synchronize()
+            p0 = time.perf_counter()
+            kern.update(outs)
+            enqueue_s.append(time.perf_counter() - p0)
+        torch.cuda.synchronize()
+        # the least bytes: each trace cell a pair reads, once a memory,
+        # and the table; the whole trace read once is the most
+        words = table.packed
+        read = np.concatenate([words[(words[:, 2] & flag) == 0, col]
+                               for col, flag in ((0, LHS_CONST),
+                                                 (1, RHS_CONST))])
+        bytes_ = 4 * len(np.unique(read)) * B + 12 * table.pairs
+        bound_us = bytes_ / HBM_BYTES_PER_S * 1e6
+        records[config] = {
+            "kernel": art.kernel, "T": T, "P": P, "B": B,
+            "pairs": table.pairs,
+            "geometry": harvest_geometry(B, P, table.pairs),
+            "kernel_us": round(kernel_ms * 1e3, 2),
+            "plain_us": round(plain_ms * 1e3, 2),
+            "bound_us": round(bound_us, 2), "bound_bytes": bytes_,
+            "trace_bytes": 4 * T * B * P,
+            "of_bound_pct": round(100 * bound_us / (kernel_ms * 1e3), 2),
+            "plain_over_kernel": round(plain_ms / kernel_ms, 2),
+            "max_abs_err": diff,
+            "pack_ms": round(statistics.median(pack_s) * 1e3, 3),
+            "enqueue_us": round(statistics.median(enqueue_s) * 1e6, 1)}
+        del outs, kern, plain
+    HARVEST_LAUNCHES["harvest phase"] = harvest_update.launches
+    emit({"phase": "harvest", "programs": records,
+          "launches": harvest_update.launches, "max_abs_err": err,
+          "seconds": round(time.monotonic() - t0, 3)})
+    return records["cgra-4x4-frame160"], err
+
+
+def harvest_sweep(device) -> None:
+    """``--harvest``: every program of the benchmark's configurations at
+    the cells' batch, the kernel timed by CUDA events (20 launches, the
+    median of 3) at each count of warps an SM in ``HARVEST_SM_WARPS``
+    (``kernels.activity.SM_WARPS`` is the one the program uses), each
+    count's bins equal to the plain version's.  One line a program, then
+    the sums by configuration and count beside the sum of each program's
+    best count."""
+    import torch
+
+    from repro_torch.cgra.simulator import execute_asm
+    from repro_torch.fuzz.activity import ActivityAccumulator
+    from repro_torch.fuzz.corpus import make_corpus
+    from repro_torch.kernels import build
+    from repro_torch.kernels.activity import SM_WARPS, harvest_geometry
+    from repro_torch.kernels.pe_array import _stream
+
+    t0 = time.monotonic()
+    lib = build.activity_library()
+    sums = {}
+    for config in HARVEST_DATA:
+        total = dict.fromkeys(HARVEST_SM_WARPS, 0.0)
+        best = 0.0
+        for art in _harvest_programs(config):
+            B = HARVEST_BATCH
+            outs = execute_asm(art.asm, art.grid, make_corpus(art, B, seed=1),
+                               batch=B, device=device)[1]
+            plain = ActivityAccumulator(art.asm, art.grid)
+            plain.update_ref(outs)
+            acc = ActivityAccumulator(art.asm, art.grid, device)
+            table = acc._harvest
+            packed = table.on_device(device)
+            T, _, P = outs.shape
+            row = {}
+            for warps in HARVEST_SM_WARPS:
+                geom = harvest_geometry(B, P, table.pairs, warps)
+                bins = torch.zeros(table.bins, dtype=torch.long,
+                                   device=device)
+
+                def launch(bins=bins, geom=geom):
+                    status = lib.harvest_run(
+                        outs.data_ptr(), packed.data_ptr(), bins.data_ptr(),
+                        table.pairs, table.bins, T, B, P, *geom,
+                        _stream(device))
+                    check(status == 0, f"harvest launch: cudaError {status}")
+
+                launch()
+                check(torch.equal(bins, plain._bits),
+                      f"{config}/{art.kernel} at {warps} warps an SM: the "
+                      f"bins differ from the plain version's")
+                row[warps] = round(host_paced_ms(launch, 20, 3) * 1e3, 2)
+                total[warps] += row[warps]
+            best += min(row.values())
+            emit({"phase": "harvest_sweep", "config": config,
+                  "kernel": art.kernel, "T": T, "P": P, "B": B,
+                  "pairs": table.pairs,
+                  "us_by_sm_warps": {str(w): t for w, t in row.items()},
+                  "geometry": {str(w): harvest_geometry(B, P, table.pairs, w)
+                               for w in HARVEST_SM_WARPS}})
+            del outs, acc, plain
+        sums[config] = {"by_sm_warps": {str(w): round(t, 1)
+                                        for w, t in total.items()},
+                        "best_each": round(best, 1)}
+    emit({"phase": "harvest_sweep_sums", "sm_warps": SM_WARPS,
+          "sums_us": sums, "seconds": round(time.monotonic() - t0, 3)})
+
+
+def harvest_windows() -> None:
+    """``--harvest``: a traced window of ``HARVEST_WINDOW_S`` seconds of
+    each benchmark cell, run in this process by the benchmark's own
+    harness (``portbench.harness.window.run``), with the counters set to 0
+    after its warm-up.  In the window, for every chunk sent: one harvest,
+    one run_cycles and one oracle launch, each also in the profiler's
+    device ops; the ring launches; no ``device_program`` build; and every
+    call answered.  The ``fuzz.activity`` spans, recorded for the window,
+    split that phase by part (set-up, each chunk's ``update``, the report)
+    in ms per 1000 memories."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from portbench.harness import spec, window
+    from repro_torch.cgra.simulator import device_program
+    from repro_torch.kernels.activity import harvest_update
+    from repro_torch.kernels.oracle import oracle_verdict
+    from repro_torch.kernels.pe_array import run_cycles
+    from repro_torch.obs import trace as obs_trace
+
+    counters = ((run_cycles, "launches"), (run_cycles, "ring_launches"),
+                (oracle_verdict, "launches"), (harvest_update, "launches"),
+                (device_program, "builds"))
+    cells = [w["name"] for w in
+             json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
+    for name in cells:
+        spans = fresh_dir(CACHE_ROOT / "harvest_spans" / name)
+
+        class Counted(window._Client):
+            def warm(self):
+                super().warm()
+                window._sync(self.device)
+                for fn, attr in counters:
+                    setattr(fn, attr, 0)
+                obs_trace.enable(str(spans))
+
+        cell = spec.load_cell(name, ROOT)
+        try:
+            win = window.run(cell, HARVEST_WINDOW_SEED, HARVEST_WINDOW_S,
+                             True, "cuda", client=Counted)
+        finally:
+            obs_trace.disable()
+        errors = [c.error for c in win.calls if c.error is not None]
+        check(not errors, f"{name}: {len(errors)} calls failed: {errors[:2]}")
+        chunks = sum(len(c.launches) for c in win.calls)
+        kmem = sum(int(c.report.memories) for c in win.calls) / 1e3
+        count = {f"{fn.__name__}.{attr}": getattr(fn, attr)
+                 for fn, attr in counters}
+        ops = {kernel: sum(kernel in op for op, _, _ in win.trace.ops)
+               for kernel in ("harvest_kernel", "oracle_kernel",
+                              "run_cycles_kernel")}
+        check(count["harvest_update.launches"] == count["run_cycles.launches"]
+              == count["oracle_verdict.launches"] == chunks
+              and count["device_program.builds"] == 0,
+              f"{name}: {chunks} chunks, counters {count}")
+        emit({"phase": "harvest_window", "cell": name,
+              "window_s": round(win.window_s, 3), "calls": len(win.calls),
+              "chunks": chunks, "counters": count,
+              # the profiler has lost events after many windows in one
+              # process, so these are shown beside the counters, not checked
+              "device_ops": ops, **activity_split(spans, kmem)})
+
+
+def activity_split(spans: Path, kmem: float) -> dict:
+    """The ``fuzz.activity`` spans recorded under ``spans``, summed by part
+    (``setup``, ``update``, ``report``) in ms per ``kmem`` thousand
+    memories, and the median µs of an ``update`` on a call's first chunk
+    and on the others."""
+    from collections import defaultdict
+
+    parts, updates = defaultdict(float), defaultdict(list)
+    records = [json.loads(line) for shard in spans.glob("*.jsonl")
+               for line in shard.read_text().splitlines()]
+    lo = {r["span"]: r["attrs"].get("lo") for r in records
+          if r["name"] == "fuzz.chunk"}
+    for r in records:
+        if r["name"] != "fuzz.activity":
+            continue
+        part = r["attrs"].get("part", "update")
+        parts[part] += r["dur"]
+        if part == "update":
+            updates["first chunk" if lo.get(r["parent"]) == 0
+                    else "other chunks"].append(r["dur"])
+    return {"activity_ms_per_kmem": {k: round(v * 1e3 / kmem, 4)
+                                     for k, v in parts.items()},
+            "update_us_median": {k: round(statistics.median(v) * 1e6, 1)
+                                 for k, v in updates.items()}}
+
+
 def triage_phase(device) -> int:
     """Phase 4d: an injected fault in gsm, fuzzed, shrunk and explained on
     the card exactly as on the CPU.  Returns the probes of its shrinking
@@ -2049,10 +2338,12 @@ def triage_phase(device) -> int:
 def stream_phase(device) -> None:
     """Phase 5: one kernel over a large corpus in large batches."""
     from repro_torch.fuzz.engine import fuzz_kernel
+    from repro_torch.kernels.activity import harvest_update
     from repro_torch.kernels.oracle import oracle_verdict
     from repro_torch.kernels.pe_array import run_cycles
 
     run_cycles.launches = oracle_verdict.launches = 0
+    harvest_update.launches = 0
     rep = fuzz_kernel("gsm", "4x4", memories=STREAM_MEMORIES,
                       batch=STREAM_BATCH, seed=1, config=map_config(),
                       device=device)
@@ -2065,7 +2356,11 @@ def stream_phase(device) -> None:
     check(oracle_verdict.launches == chunks,
           f"stream: the oracle launched {oracle_verdict.launches} times, not "
           f"{chunks}")
+    check(harvest_update.launches == chunks,
+          f"stream: the harvest kernel launched {harvest_update.launches} "
+          f"times, not {chunks}")
     ORACLE_LAUNCHES["stream"] = oracle_verdict.launches
+    HARVEST_LAUNCHES["stream"] = harvest_update.launches
     emit({"phase": "stream", "kernel": "gsm", "arch": "4x4",
           "memories": rep.memories, "batch": rep.batch,
           "run_cycles_launches": run_cycles.launches,
@@ -2773,6 +3068,11 @@ def main(argv=None) -> int:
                     help="a copy of the parent commit's src/repro_torch/"
                          "kernels: phases 5c, 6, 6b and 6c time its kernels "
                          "in turns with this one's")
+    ap.add_argument("--harvest", action="store_true",
+                    help="only the harvest kernel: phase 4c's part three, "
+                         "its sweep of warps an SM over every program of "
+                         "the benchmark's configurations and a traced "
+                         "window of each cell that counts the launches")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2795,12 +3095,24 @@ def main(argv=None) -> int:
     build.library()
     oracle_built = build.build(build.ORACLE_SOURCE)
     build.oracle_library()
+    activity_built = build.build(build.ACTIVITY_SOURCE)
+    build.activity_library()
+    builds = (built, oracle_built, activity_built)
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
-          "nvcc_seconds": round(built.seconds + oracle_built.seconds, 3),
+          "nvcc_seconds": round(sum(b.seconds for b in builds), 3),
           "library": built.path.name,
           "oracle_library": oracle_built.path.name,
-          "ptxas": [ln for b in (built, oracle_built)
+          "activity_library": activity_built.path.name,
+          "ptxas": [ln for b in builds
                     for ln in b.log.splitlines() if "ptxas" in ln]})
+
+    if args.harvest:
+        harvest_phase(device)
+        harvest_sweep(device)
+        harvest_windows()
+        emit({"ok": True, "harvest_only": True,
+              "seconds": round(time.monotonic() - t_start, 3)})
+        return 0
 
     artifacts = [load_artifact(arch, name) for arch in ("4x4", "3x3")
                  for name in artifact_names(arch)]
@@ -2823,6 +3135,7 @@ def main(argv=None) -> int:
         stacked_runs = stacked_main_path(artifacts, reports, device)
     activity_phase(reports)
     activity_cost(artifacts, device)
+    harvest, harvest_err = harvest_phase(device)
     with oracle_launches("triage"):
         triage_probes = triage_phase(device)
     stream_phase(device)
@@ -2905,7 +3218,14 @@ def main(argv=None) -> int:
              at_main["bound_us"] / 1e3, at_main["bound_by"], replaces=None,
              source="src/repro_torch/kernels/csrc/oracle.cu",
              launches_by_path=dict(ORACLE_LAUNCHES),
-             times={str(b): t for b, t in oracle_times.items()})]})
+             times={str(b): t for b, t in oracle_times.items()}),
+        line("activity.harvest_update", HARVEST_LAUNCHES["main_path"],
+             harvest_err,
+             harvest["kernel_us"] / 1e3, harvest["plain_us"] / 1e3,
+             harvest["bound_us"] / 1e3, replaces=None,
+             source="src/repro_torch/kernels/csrc/activity.cu",
+             launches_by_path=dict(HARVEST_LAUNCHES),
+             program=harvest["kernel"])]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

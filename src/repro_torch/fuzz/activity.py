@@ -15,11 +15,15 @@ in numpy.  The replay is static, so this module resolves it once per
 schedule on the host instead: every value the replay compares (a PE's
 previous OUT, a register an op reads, the previous A/B operand) is the
 trace at the last *executed* cell before it that wrote it, or a preset,
-an immediate or zero, whatever the trace holds.  Each chunk is then one
-gather from the trace, an XOR, a popcount and one ``index_add_`` into
-per-opcode int64 bins, on the trace's device and whatever T is; the trace
-never leaves the device.  All sums are integers, so the report equals
-the JAX package's exactly.
+an immediate or zero, whatever the trace holds.  Each chunk then adds the
+popcount of every pair's XOR into per-opcode int64 bins, on the trace's
+device and whatever T is; the trace never leaves the device.  On the card
+that is one launch of the hand-written harvest kernel
+(:func:`repro_torch.kernels.activity.harvest_update`) over the replay,
+packed once an accumulator; elsewhere
+:meth:`ActivityAccumulator.update_ref`, the plain version: one gather from
+the trace, an XOR, a popcount and one ``index_add_``.  All sums are
+integers, so the report equals the JAX package's exactly.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from ..cgra.arch import Grid, neighbor_table
 from ..cgra.bitstream import AssembledCIL
 from ..cgra.isa import OPCODE, OPS, SRC_IMM, SRC_OWN
 from ..cgra.simulator import preset_arrays
+from ..kernels.activity import HarvestTable, harvest_update, pack_pairs
 
 M32 = (1 << 32) - 1
 
@@ -155,10 +160,14 @@ class ActivityAccumulator:
 
     One accumulator per assembled kernel; call :meth:`update` with each
     chunk's out trace (T, B, P) and read :meth:`report` at the end.  The
-    sums stay on the trace's device until :meth:`report`.
+    sums stay on the trace's device until :meth:`report`.  Given the CUDA
+    device the traces will be on, the set-up also packs the replay for
+    the harvest kernel and copies it and the zeroed sums there, while the
+    device is idle, so that :meth:`update` only enqueues.
     """
 
-    def __init__(self, asm: AssembledCIL, grid: Grid):
+    def __init__(self, asm: AssembledCIL, grid: Grid,
+                 device: Optional[torch.device] = None):
         self.asm = asm
         self.T, self.P = asm.total_rows, asm.num_pes
         lhs, rhs, bins = _replay_pairs(asm, grid)
@@ -167,12 +176,28 @@ class ActivityAccumulator:
         ops = (asm.bitstream.astype(np.int64) >> 27) & 0x1F
         self._cells_per_op = np.bincount(ops.ravel(), minlength=len(OPS))
         self._tables: Optional[_Tables] = None
+        self._harvest: Optional[HarvestTable] = None
         self._bits: Optional[torch.Tensor] = None  # (2 * len(OPS),) int64
         self._memories = 0
+        if device is not None and torch.device(device).type == "cuda":
+            self._harvest = self._pack()
+            self._harvest.on_device(torch.device(device))
+            self._bits_on(torch.device(device))
 
-    def update(self, outs: torch.Tensor) -> None:
-        """Fold one chunk's int32 out trace (T, B, P) into the statistics,
-        on the trace's device."""
+    def _pack(self) -> HarvestTable:
+        n = len(self._bins)
+        return pack_pairs(self._sources[:n], self._sources[n:], self._bins,
+                          self.T, self.P, 2 * len(OPS))
+
+    def _bits_on(self, dev: torch.device) -> torch.Tensor:
+        if self._bits is None:
+            self._bits = torch.zeros(2 * len(OPS), dtype=torch.long,
+                                     device=dev)
+        elif self._bits.device != dev:
+            self._bits = self._bits.to(dev)
+        return self._bits
+
+    def _check(self, outs: torch.Tensor) -> None:
         T, B, P = outs.shape
         if (T, P) != (self.T, self.P):
             raise ValueError(
@@ -180,12 +205,31 @@ class ActivityAccumulator:
                 f"({self.T}, ., {self.P})")
         if outs.dtype != torch.int32:
             raise ValueError(f"trace: expected int32, got {outs.dtype}")
+
+    def update(self, outs: torch.Tensor) -> None:
+        """Fold one chunk's int32 out trace (T, B, P) into the statistics,
+        on the trace's device: on the card one launch of the harvest kernel
+        over the replay, packed and copied there once (in the set-up where
+        it was given the device); elsewhere :meth:`update_ref`."""
+        if outs.device.type != "cuda":
+            self.update_ref(outs)
+            return
+        self._check(outs)
+        if self._harvest is None:
+            self._harvest = self._pack()
+        harvest_update(self._harvest, outs, self._bits_on(outs.device))
+        self._memories += outs.shape[1]
+
+    def update_ref(self, outs: torch.Tensor) -> None:
+        """The plain version of :meth:`update`, on the trace's device: one
+        gather of the replay's cells from the trace, an XOR, a popcount and
+        one ``index_add_`` into the bins."""
+        self._check(outs)
+        T, B, P = outs.shape
         dev = outs.device
         if self._tables is None or self._tables.t.device != dev:
             self._tables = _Tables(self._sources, self._bins, P, dev)
-            self._bits = (torch.zeros(2 * len(OPS), dtype=torch.long,
-                                      device=dev) if self._bits is None
-                          else self._bits.to(dev))
+        self._bits_on(dev)
         tab = self._tables
         vals = torch.where(tab.is_const, tab.const, outs[tab.t, :, tab.q])
         n = vals.shape[0] // 2
@@ -220,6 +264,6 @@ class ActivityAccumulator:
 def harvest_activity(asm: AssembledCIL, grid: Grid,
                      outs: torch.Tensor) -> ActivityReport:
     """One-shot harvest of a single batched run's out trace."""
-    acc = ActivityAccumulator(asm, grid)
+    acc = ActivityAccumulator(asm, grid, outs.device)
     acc.update(outs)
     return acc.report()

@@ -500,7 +500,7 @@ def fuzz_program(artifact: Artifact, mems: np.ndarray, batch: int = 1024,
         acc = None
         if collect_activity:
             with _phase(times, "activity", part="setup") as sp:
-                acc = ActivityAccumulator(asm, artifact.grid)
+                acc = ActivityAccumulator(asm, artifact.grid, dev)
                 sp.set(cells=acc.cells)
             rep.activity_setup_s = round(sp.dur, 4)
         for lo in range(0, n, batch):

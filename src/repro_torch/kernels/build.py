@@ -2,11 +2,11 @@
 ctypes.
 
 Each source under ``csrc/`` (``pe_array.cu``, the PE array; ``oracle.cu``,
-the fuzz oracle) is compiled on its own into a shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds), cached
-under ``build/repro_torch_kernels/`` at the repository root and keyed by
-the hash of the source and the flags.  A failed build raises; there is no
-fallback.
+the fuzz oracle; ``activity.cu``, the activity harvest) is compiled on its
+own into a shared library with a plain C interface (no PyTorch headers, so
+a build takes seconds), cached under ``build/repro_torch_kernels/`` at the
+repository root and keyed by the hash of the source and the flags.  A
+failed build raises; there is no fallback.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "pe_array.cu"
 ORACLE_SOURCE = CSRC / "oracle.cu"
+ACTIVITY_SOURCE = CSRC / "activity.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -88,4 +89,14 @@ def oracle_library() -> ctypes.CDLL:
                                        + [ctypes.c_int] * 9
                                        + [ctypes.c_void_p])
     lib.oracle_verdict_run.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def activity_library() -> ctypes.CDLL:
+    """The loaded activity-harvest library with its C entry point typed."""
+    lib = ctypes.CDLL(str(build(ACTIVITY_SOURCE).path))
+    lib.harvest_run.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                                + [ctypes.c_void_p])
+    lib.harvest_run.restype = ctypes.c_int
     return lib
